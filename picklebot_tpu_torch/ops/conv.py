@@ -1,0 +1,94 @@
+"""3-D convolutions on channels-last activations.
+
+Counterpart of ``picklebot_tpu/ops/conv.py``. Activations are
+(B, T, H, W, C) as in the JAX package; the weight keeps the reference's
+torch layout (O, I/groups, kT, kH, kW) so state dicts load as they are.
+``Conv3d`` serves the 3x3x3 stride-2 stem and block6's 1x1 conv, which JAX
+also leaves to the compiler; the plain bottleneck chain uses its
+pointwise and depthwise forms. A 1x1x1 conv is a matmul over the channel
+axis; any other conv is ``F.conv3d`` on a channels-first view.
+
+Parameters are f32; each op casts them to its input's dtype (the compute
+dtype of ``core.policy``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+IntOrTuple = Union[int, Tuple[int, int, int]]
+
+
+def _triple(v: IntOrTuple) -> Tuple[int, int, int]:
+    if isinstance(v, (tuple, list)):
+        assert len(v) == 3, f"expected a 3-tuple, got {v}"
+        return tuple(int(a) for a in v)
+    return (int(v),) * 3
+
+
+def torch_default_uniform_(t: torch.Tensor, fan_in: int,
+                           generator: torch.Generator):
+    """nn.Conv3d's default init for weights and biases alike:
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in)) (kaiming_uniform with a=sqrt(5))."""
+    bound = 1.0 / math.sqrt(fan_in)
+    with torch.no_grad():
+        t.uniform_(-bound, bound, generator=generator)
+
+
+def pointwise_conv(x, w_io):
+    """1x1x1 conv on (..., I) with a weight matrix (I, O), in x's dtype."""
+    return torch.matmul(x, w_io.to(x.dtype))
+
+
+def depthwise_conv(x, wd, stride: int):
+    """Bottleneck3D's depthwise conv on (B, T, H, W, E) with wd (k, k, E):
+    temporal kernel 1, but the integer stride and the padding k//2 act on T
+    as well (the reference's quirk, kept for checkpoint parity)."""
+    k, e = wd.shape[0], wd.shape[-1]
+    w = wd.to(x.dtype).permute(2, 0, 1).reshape(e, 1, 1, k, k)
+    out = F.conv3d(x.permute(0, 4, 1, 2, 3), w, stride=stride,
+                   padding=k // 2, groups=e)
+    return out.permute(0, 2, 3, 4, 1).contiguous()
+
+
+class Conv3d(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: IntOrTuple, stride: IntOrTuple = 1,
+                 padding: IntOrTuple = 0, groups: int = 1, bias: bool = True):
+        super().__init__()
+        assert in_channels % groups == 0 and out_channels % groups == 0
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.kernel_size = _triple(kernel_size)
+        self.stride = _triple(stride)
+        self.padding = _triple(padding)
+        self.groups = groups
+        self.weight = nn.Parameter(torch.empty(
+            (out_channels, in_channels // groups) + self.kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
+        self.fan_in = (in_channels // groups) * math.prod(self.kernel_size)
+
+    def reset_parameters(self, generator: torch.Generator):
+        torch_default_uniform_(self.weight, self.fan_in, generator)
+        if self.bias is not None:
+            torch_default_uniform_(self.bias, self.fan_in, generator)
+
+    @property
+    def is_pointwise(self) -> bool:
+        return (self.kernel_size == (1, 1, 1) and self.stride == (1, 1, 1)
+                and self.padding == (0, 0, 0) and self.groups == 1)
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        if self.is_pointwise:
+            out = pointwise_conv(
+                x, self.weight.view(self.out_channels, self.in_channels).t())
+            return out if bias is None else out + bias
+        out = F.conv3d(x.permute(0, 4, 1, 2, 3), self.weight.to(x.dtype),
+                       bias, self.stride, self.padding, groups=self.groups)
+        return out.permute(0, 2, 3, 4, 1).contiguous()
