@@ -5,8 +5,10 @@ package's variables.
 checkpoint, or one written by the JAX package's ``save_pth``) with
 ``strict=True``. ``state_dict_from_jax`` turns the JAX package's flattened
 variables, given as numpy arrays, into the port's state dict; it carries
-its own copy of the MobileNetLarge3D key table and the layout rules of
-``picklebot_tpu/train/key_maps.py`` and ``checkpoint.py``.
+its own copy of the MobileNetLarge3D and MobileViT key tables and the
+layout rules of ``picklebot_tpu/train/key_maps.py`` and ``checkpoint.py``
+(conv (k..., I, O) -> (O, I, k...), 2-D linear (I, O) -> (O, I), BN
+statistics as state only).
 """
 
 from __future__ import annotations
@@ -17,30 +19,40 @@ from typing import Dict
 import numpy as np
 import torch
 
-# JAX path -> torch key where the two module trees differ (MobileNet3D)
-_MOBILENET3D_KEYS = {
-    "fc1.w": "classifier.1.weight", "fc1.b": "classifier.1.bias",
-    "fc2.w": "classifier.3.weight", "fc2.b": "classifier.3.bias",
-    "block1.conv.w": "block1.0.weight", "block1.conv.b": "block1.0.bias",
-    "block6.conv.w": "block6.0.weight", "block6.conv.b": "block6.0.bias",
-}
-_MOBILENET3D_PREFIXES = {"block1.bn.": "block1.1.", "block6.bn.": "block6.1."}
+# JAX path -> torch key where the two module trees differ: regex
+# rewrites, applied in order before the generic leaf renames
+_MOBILENET3D_RULES = (
+    (r"^fc1\.", "classifier.1."), (r"^fc2\.", "classifier.3."),
+    (r"^block([16])\.conv\.", r"block\1.0."),
+    (r"^block([16])\.bn\.", r"block\1.1."),
+)
+# MobileViT (key_maps.py mobilevit_key_map, inverted): conv_*_bn stacks
+# are Sequential(conv, bn, silu), transformer layers ModuleList(attention,
+# feedforward), the head lives in to_logits
+_MOBILEVIT_RULES = (
+    (r"^to_logits_conv\.conv\.", "to_logits.0.0."),
+    (r"^to_logits_conv\.bn\.", "to_logits.0.1."),
+    (r"^head\.", "to_logits.2."),
+    (r"(^|\.)(conv[1-4])\.conv\.", r"\1\2.0."),
+    (r"(^|\.)(conv[1-4])\.bn\.", r"\1\2.1."),
+    (r"\.attns\.(\d+)\.to_out\.", r".layers.\1.0.to_out.0."),
+    (r"\.attns\.(\d+)\.", r".layers.\1.0."),
+    (r"\.ffs\.(\d+)\.fc1\.", r".layers.\1.1.net.0."),
+    (r"\.ffs\.(\d+)\.fc2\.", r".layers.\1.1.net.3."),
+)
 # torch keys declared as 1x1x1 Conv3d weights where JAX keeps a matrix
 _CONV_MATRIX = re.compile(r"(classifier\.[13]|.*\.se\.[13])\.weight")
 
-KEY_TABLES = {"MobileNetLarge3D": (_MOBILENET3D_KEYS, _MOBILENET3D_PREFIXES)}
+KEY_RULES = {"MobileNetLarge3D": _MOBILENET3D_RULES,
+             "MobileViT": _MOBILEVIT_RULES}
 
 
 def _torch_key(path: str, is_state: bool, model_name: str) -> str:
-    if model_name not in KEY_TABLES:
+    if model_name not in KEY_RULES:
         raise NotImplementedError(
             f"no key table for {model_name}: not ported yet (ROADMAP.md)")
-    table, prefixes = KEY_TABLES[model_name]
-    if path in table:
-        return table[path]
-    for old, new in prefixes.items():
-        if path.startswith(old):
-            path = new + path[len(old):]
+    for pattern, repl in KEY_RULES[model_name]:
+        path = re.sub(pattern, repl, path)
     head, _, leaf = path.rpartition(".")
     if is_state:
         return f"{head}.running_{leaf}"          # BN mean / var

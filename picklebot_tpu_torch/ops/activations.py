@@ -1,5 +1,5 @@
 """Elementwise activations with PyTorch's semantics, relu6-based as in
-``picklebot_tpu/ops/activations.py``."""
+``picklebot_tpu/ops/activations.py``; ``silu`` for MobileViT."""
 
 import torch
 from torch import nn
@@ -21,6 +21,12 @@ def hardsigmoid(x):
 def hardswish(x):
     # nn.Hardswish: x * relu6(x + 3) / 6
     return x * (relu6(x + 3.0) * (1.0 / 6.0))
+
+
+def silu(x):
+    # x * sigmoid(x), as the JAX package writes it (not the fused F.silu,
+    # which rounds once where this rounds twice in bf16)
+    return x * torch.sigmoid(x)
 
 
 def identity(x):

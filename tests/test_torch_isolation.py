@@ -21,9 +21,10 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "picklebot_tpu" or m.startswith("picklebot_tpu."))
+from picklebot_tpu_torch.ops import flash_attention as fa
 from picklebot_tpu_torch.ops import fused_bottleneck as fb
 print(json.dumps({{"modules": names, "bad": bad,
-                  "launches": fb.LAUNCHES}}))
+                  "launches": fb.LAUNCHES, "flash_launches": fa.LAUNCHES}}))
 """
 
 
@@ -40,9 +41,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     for mod in ("serve", "convert", "ops.fused_bottleneck", "ops.bottleneck",
                 "models.mobilenet3d", "models.registry", "utils.config",
                 "data.dataset", "train.step", "utils.devices",
-                "core.policy"):
+                "core.policy", "ops.attention", "ops.flash_attention",
+                "models.mobilevit"):
         assert f"picklebot_tpu_torch.{mod}" in res["modules"]
     assert res["launches"] == {"pool": 0, "main": 0}
+    assert res["flash_launches"] == {"packed": 0, "heads": 0}
 
 
 def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
@@ -60,5 +63,4 @@ def test_unported_model_points_to_roadmap():
     from picklebot_tpu_torch.models.registry import initialize_model
     from picklebot_tpu_torch.utils.config import Config
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        initialize_model(Config(model_name="MobileViT", dims=[1],
-                                channels=[1]).validate())
+        initialize_model(Config(model_name="MoViNetA2").validate())

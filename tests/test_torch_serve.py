@@ -1,6 +1,7 @@
 """Port: the serve CLI against the JAX package's, from one shared .pth.
 
-The JAX package's ``save_pth`` writes its init weights once; both servers
+For MobileNetLarge3D and MobileViT (xxs widths, 'auto' attention), the
+JAX package's ``save_pth`` writes its init weights once; both servers
 load that file and evaluate the same synthetic CSV on the CPU under the
 f32 policy. Predictions must be identical; confidences (softmax of
 logits that agree to ~1e-5, rounded to 4 decimals by both) within 2e-4.
@@ -13,28 +14,35 @@ import pytest
 
 from picklebot_tpu import serve as jax_serve
 from picklebot_tpu.models.mobilenet3d import MobileNetLarge3D as JaxLarge3D
+from picklebot_tpu.models.mobilevit import MobileViT as JaxMobileViT
 from picklebot_tpu.train.checkpoint import build_reverse_map, save_pth
 from picklebot_tpu.train.key_maps import export_rank_for, key_map_for
 from picklebot_tpu_torch import serve as port_serve
 from picklebot_tpu_torch.models.mobilenet3d import MobileNetLarge3D
+from picklebot_tpu_torch.models.mobilevit import MOBILEVIT_CONFIGS, MobileViT
 
 NAME = "MobileNetLarge3D"
 
 
-def _write_inputs(tmp_path):
-    cfg = {"model_name": NAME, "num_classes": 13, "criterion": "CE",
+def _write_inputs(tmp_path, name=NAME):
+    cfg = {"model_name": name, "num_classes": 13, "criterion": "CE",
            "use_autocast": False, "batch_size": 2,
            "effective_batch_size": 2, "video_paths": str(tmp_path),
            "data_backend": "synthetic", "synthetic_shape": [8, 64, 64],
            "t_bucket": 8, "max_frames": 8}
+    if name == "MobileViT":
+        cfg.update(MOBILEVIT_CONFIGS["xxs"], attention_backend="auto")
+        jax_model = JaxMobileViT(num_classes=13, **MOBILEVIT_CONFIGS["xxs"])
+        port = MobileViT(num_classes=13, **MOBILEVIT_CONFIGS["xxs"])
+    else:
+        jax_model, port = JaxLarge3D(13), MobileNetLarge3D(13)
     cfg_path = tmp_path / "cfg.json"
     cfg_path.write_text(json.dumps(cfg))
     pth = tmp_path / "w.pth"
-    save_pth(str(pth), JaxLarge3D(13).init(0),
-             reverse_map=build_reverse_map(
-                 MobileNetLarge3D(13).state_dict().keys(),
-                 key_map_for(NAME)),
-             rank_map=export_rank_for(NAME))
+    save_pth(str(pth), jax_model.init(0),
+             reverse_map=build_reverse_map(port.state_dict().keys(),
+                                           key_map_for(name)),
+             rank_map=export_rank_for(name))
     return str(cfg_path), str(pth)
 
 
@@ -43,8 +51,8 @@ def _lines(capsys):
             if l.startswith("{")]
 
 
-def test_port_serve_matches_jax_serve(tmp_path, capsys):
-    cfg, pth = _write_inputs(tmp_path)
+def _serve_parity(tmp_path, capsys, name):
+    cfg, pth = _write_inputs(tmp_path, name)
     args = [cfg, "--checkpoint", pth, "--csv", "x", "--limit", "4",
             "--batch", "2"]
     assert jax_serve.main(args) == 0
@@ -57,6 +65,14 @@ def test_port_serve_matches_jax_serve(tmp_path, capsys):
         assert (g["clip"], g["pred"], g["label"]) == \
             (w["clip"], w["pred"], w["label"])
         assert abs(g["confidence"] - w["confidence"]) <= 2e-4
+
+
+def test_port_serve_matches_jax_serve(tmp_path, capsys):
+    _serve_parity(tmp_path, capsys, NAME)
+
+
+def test_port_serve_matches_jax_serve_mobilevit(tmp_path, capsys):
+    _serve_parity(tmp_path, capsys, "MobileViT")
 
 
 def test_serve_on_cuda_without_a_card_raises(tmp_path):
