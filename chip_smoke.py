@@ -30,10 +30,25 @@ Phases, in order (each prints JSON lines; any failure exits non-zero):
   5. pallas   one MobileViT-s forward each with attention_backend
               'pallas' and 'pallas_packed': 9 per-head flash launches
               each, logits against the plain path
-  6. summary  {"kernels": [...]}, the card line, and last
+  6. train    python -m picklebot_tpu_torch.cli on synthetic configs
+              derived from configs/mobilevit_s.json and
+              configs/mobilenet_large_50k.json (full width; each cut on a
+              JSON line: 32x224x224 synthetic clips, batch 8, 2
+              microbatches, 3 steps, 48 clips): finite losses, the exact
+              kernel launches of each run (the flash backward kernels
+              included), and the written .pth serves; one MobileViT-s
+              train step each with 'pallas' and 'pallas_packed'; every
+              parameter's gradient against the plain path (kernels=False)
+              on one bs-8 batch; train step time, samples/s, forward and
+              backward split, peak memory, and a torch.profiler trace of
+              one train step per model
+  7. summary  {"kernels": [...]}, the card line, and last
               {"ok": true, "device": ...}
-Per-shape numbers also go to chiprun_out/chip_smoke.json. Without CUDA
-it exits with code 2 and prints no result. Imports nothing of JAX.
+The flash backward kernels (dQ, dK/dV) are held against
+flash_backward_reference in phase 3: packed at stage 1, per head at every
+stage, qkv-packed at stage 1 (bf16), f32 with TF32 off, head dims 32 and
+64. Per-shape numbers also go to chiprun_out/chip_smoke.json. Without
+CUDA it exits with code 2 and prints no result. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -106,6 +121,34 @@ LSE_ABS_TOL = 1e-3           # f32 logsumexp of f32 scores, two orders
 # logits after 15 blocks in bf16: the two paths' roundings random-walk
 # through about 45 ops, sqrt(45) * 2^-9 ~ 1.3%; allow 5% of max|logit|.
 LOGIT_REL_TOL = 5e-2
+# train: a bs-8 step's loss and every parameter's gradient, kernel path
+# against the plain path. In f32 with TF32 off both paths compute the same
+# function (the fused bottleneck's backward is the plain chain's,
+# recomputed; the flash backward is the plain backward's algebra), so every
+# leaf is held to 1% rms and a cosine of 0.9999 (run 4B: worst 0.32%, in a
+# Large3D SE layer behind 15 train-mode BatchNorms; MobileViT-s 2e-5). In
+# bf16 the gradients themselves are far from f32: run 4B measured the plain
+# path's bf16 gradients 43% (rms, the median leaf of Large3D) and 9%
+# (MobileViT-s) from the f32 ones, up to 150% on a few leaves, so no bound
+# of 5% between two bf16 paths can hold. There each leaf's kernel-path
+# gradient must be no farther from the f32 gradient than twice the plain
+# path's distance plus 5% (run 4B: at most 1.67 times), and the losses
+# agree within 2%. A leaf whose gradient is zero in exact arithmetic (a
+# bias straight before a train-mode BatchNorm) or negligible carries
+# rounding noise only: a plain f32 gradient below 1% of the median leaf's
+# rms marks one, and its f32 kernel-vs-plain difference must stay below
+# that floor.
+TRAIN_LOSS_REL_TOL = 2e-2
+F32_LOSS_REL_TOL = 1e-4
+GRAD_F32_RMS_TOL = 1e-2
+GRAD_F32_MIN_COS = 0.9999
+GRAD_BF16_FACTOR, GRAD_BF16_SLACK = 2.0, 5e-2
+GRAD_NOISE_FLOOR = 1e-2
+# the train phase's cuts of the repo's configs (full width)
+TRAIN_CUTS = {"data_backend": "synthetic", "synthetic_shape": [32, 224, 224],
+              "batch_size": 8, "effective_batch_size": 16,
+              "synthetic_len": 48}
+TRAIN_STEPS = 3
 
 
 def emit(obj):
@@ -172,6 +215,18 @@ def flash_bound(s, h, n, d, elem, with_lse):
     head), QK^T and PV."""
     nbytes = 4 * s * h * n * d * elem + (s * h * n * 4 if with_lse else 0)
     return roofline(nbytes, 4 * s * h * n * n * d,
+                    "bfloat16" if elem == 2 else "float32")
+
+
+def flash_bwd_bound(s, h, n, d, elem, which):
+    """Least time for the flash backward: 'dq' reads q, k, v, dO, lse and
+    D and writes dq, 6*N^2*D FLOPs per head (S, dP, dQ); 'dkv' the same
+    reads, dk and dv written, 8*N^2*D (S, dP, dV, dK); 'pair' the whole
+    function, q, k, v, dO read and dq, dk, dv written, S, dP, dV, dQ and
+    dK once: 10*N^2*D."""
+    tensors, flops = {"dq": (5, 6), "dkv": (6, 8), "pair": (7, 10)}[which]
+    nbytes = tensors * s * h * n * d * elem + 2 * s * h * n * 4
+    return roofline(nbytes, flops * s * h * n * n * d,
                     "bfloat16" if elem == 2 else "float32")
 
 
@@ -449,12 +504,133 @@ def flash_rows(reps):
     return rows
 
 
+def flash_bwd_case(layout, n, dtype, seed, dh=VIT_DHEAD):
+    """One flash backward case on MobileViT-s's stage shapes: seeded
+    q, k, v (views of one qkv projection) and output gradient, the
+    Function's grads (forward kernel with lse, D, dQ and dK/dV kernels),
+    the plain backward's from the same forward residuals, and per-kernel
+    launchers on the kernels' (S, H, N, D) views for timing."""
+    import torch
+    from picklebot_tpu_torch.ops import flash_attention as fa
+    h, scale = VIT_HEADS * VIT_DHEAD // dh, dh ** -0.5
+    qkv = seeded_qkv(n, dtype, seed).requires_grad_()
+    g = torch.randn(VIT_SEQS, n, h * dh, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(
+                        seed + 1)).to(dtype)
+    if layout == "qkvpacked":
+        qkv5 = qkv.unflatten(-1, (3, h, dh))
+        g5 = g.unflatten(-1, (h, dh))
+        got = torch.autograd.grad(fa.flash_attention_qkvpacked(qkv5), qkv5,
+                                  g5)[0].unbind(-3)
+        q, k, v = fa._qkv_split(qkv5.detach())
+        out, lse = fa._qkvpacked_forward(qkv5.detach(), scale, True)
+        want = fa.flash_backward_reference(q, k, v, out.transpose(-2, -3),
+                                           lse, g5.transpose(-2, -3), scale)
+        return dict(got=[t.transpose(-2, -3) for t in got], want=want)
+    q, k, v = qkv.chunk(3, dim=-1)
+    if layout == "packed":
+        got = torch.autograd.grad(fa.flash_attention_packed(q, k, v, h),
+                                  (q, k, v), g)
+        with torch.no_grad():
+            out, lse = fa.flash_attention_packed(q, k, v, h, with_lse=True)
+        got = [fa.split_heads(t, h) for t in got]
+    else:
+        q, k, v = (fa.split_heads(t, h) for t in (q, k, v))
+        g = fa.split_heads(g, h)
+        got = torch.autograd.grad(fa.flash_attention(q, k, v), (q, k, v), g)
+        with torch.no_grad():
+            out, lse = fa._heads_forward(q, k, v, scale, True)
+    heads = [fa.split_heads(t, h) if layout == "packed" else t
+             for t in (q.detach(), k.detach(), v.detach(), out, g)]
+    want = fa.flash_backward_reference(*heads[:4], lse, heads[4], scale)
+    # the kernels' own views, D and output buffers, for the timed launches
+    bufs = [torch.empty_like(t) for t in heads[:3]]
+    q4, k4, v4, o4, g4, *out4 = (fa._as_seq_head(t) for t in heads + bufs)
+    lse3 = lse.reshape(q4.shape[:3])
+    dd = fa._backward_d(o4, g4)
+
+    def launch(name):
+        fa._launch_backward_kernel(name, q4, k4, v4, g4, lse3, dd, *out4,
+                                   scale)
+    return dict(got=got, want=want, launch=launch, heads=heads, lse=lse)
+
+
+def flash_bwd_rows(reps):
+    """The flash backward kernels against ``flash_backward_reference`` at
+    MobileViT-s's attention shapes: packed at stage 1 and per head at
+    every stage (bf16, with dQ, dK/dV, plain and library times), qkv-packed
+    at stage 1 (bf16), f32 with TF32 off (packed at stage 1, per head at
+    N=147, a ragged last tile), head dims 32 and 64 (bf16, per head,
+    N=147). Library: autograd through F.scaled_dot_product_attention on
+    the same tensors, its backward alone."""
+    import torch
+    import torch.nn.functional as F
+    from picklebot_tpu_torch.core.policy import DtypePolicy
+    from picklebot_tpu_torch.ops import flash_attention as fa
+
+    h, d = VIT_HEADS, VIT_DHEAD
+    rows = []
+
+    def held(name, got, want, f32=False):
+        out = {}
+        for part, a, b in zip(("dq", "dk", "dv"), got, want):
+            if f32:
+                out[part] = dict(err=check_close(
+                    f"{name} {part}", a, b, FLASH_F32_REL_TOL)[0])
+            else:
+                out[part] = check_bf16_flash(f"{name} {part}", a, b)
+        torch.cuda.synchronize()
+        return out
+
+    for layout, n, seed in [("packed", VIT_ATTENTION[0][0], 600)] + [
+            ("heads", n_, 610 + n_) for n_, _ in VIT_ATTENTION]:
+        c = flash_bwd_case(layout, n, torch.bfloat16, seed)
+        errs = held(f"flash bwd {layout} bf16 n={n}", c["got"], c["want"])
+        q, k, v, o, g = c["heads"]
+        lib_in = [t.detach().requires_grad_() for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*lib_in, scale=d ** -0.5)
+        row = {"entry": layout, "n": n, "dtype": "bfloat16", **errs,
+               "err": max(e["err"] for e in errs.values()),
+               "ms_dq": time_ms(lambda: c["launch"]("dq"), reps),
+               "ms_dkv": time_ms(lambda: c["launch"]("dkv"), reps),
+               "plain_ms": time_ms(lambda: fa.flash_backward_reference(
+                   q, k, v, o, c["lse"], g, d ** -0.5), reps),
+               "library_ms": time_ms(lambda: torch.autograd.grad(
+                   lib_out, lib_in, g, retain_graph=True), reps)}
+        for which in ("dq", "dkv", "pair"):
+            row[f"bound_{which}"] = flash_bwd_bound(VIT_SEQS, h, n, d, 2,
+                                                    which)
+        emit({"phase": "kernels", "kernel": "flash_bwd", **row})
+        rows.append(row)
+        del c, q, k, v, o, g, lib_in, lib_out
+
+    c = flash_bwd_case("qkvpacked", VIT_ATTENTION[0][0], torch.bfloat16,
+                       650)
+    qkv_errs = held("flash bwd qkv-packed bf16 n=784", c["got"], c["want"])
+    f32 = {}
+    with DtypePolicy.f32().precision():
+        for layout, n in (("packed", VIT_ATTENTION[0][0]), ("heads", 147)):
+            c = flash_bwd_case(layout, n, torch.float32, 660)
+            f32[f"{layout} n={n}"] = held(f"flash bwd {layout} f32 n={n}",
+                                          c["got"], c["want"], f32=True)
+    dims = {}
+    for dh in (32, 64):
+        c = flash_bwd_case("heads", 147, torch.bfloat16, 670 + dh, dh=dh)
+        dims[f"d={dh}"] = held(f"flash bwd per-head bf16 d={dh}", c["got"],
+                               c["want"])
+    emit({"phase": "kernels", "kernel": "flash_bwd",
+          "qkvpacked n=784 bf16": qkv_errs, "f32": f32,
+          "rel_tol_f32": FLASH_F32_REL_TOL, "head_dims": dims})
+    return rows
+
+
 def phase_kernels():
     rows, per = fused_rows("MobileNetLarge3D", GEOMETRIES, 0, reps=5)
     vit_rows, vit_per = fused_rows("MobileViT-s", VIT_GEOMETRIES, 50,
                                    reps=5)
     fused_f32_case()
-    return rows + vit_rows, per, vit_per, flash_rows(reps=5)
+    return (rows + vit_rows, per, vit_per, flash_rows(reps=5),
+            flash_bwd_rows(reps=5))
 
 
 def calibrate_batchnorm(model, x):
@@ -490,6 +666,16 @@ def clip_batch():
     return feats, preprocess(torch.from_numpy(feats).cuda(), torch.bfloat16)
 
 
+def zero_counters(counters):
+    """Set every launch count to 0 (just before a main-path run)."""
+    for c in counters.values():
+        c.update(dict.fromkeys(c, 0))
+
+
+def read_counters(counters):
+    return {name: dict(c) for name, c in counters.items()}
+
+
 def serve_run(cfg, model, counters):
     """picklebot_tpu_torch.serve.main on 16 synthetic clips at --batch 8
     from ``model``'s weights, with every launch counter set to 0 just
@@ -503,8 +689,7 @@ def serve_run(cfg, model, counters):
             json.dump(cfg, f)
         pth = os.path.join(tmp, "weights.pth")
         torch.save({k: v.cpu() for k, v in model.state_dict().items()}, pth)
-        for c in counters.values():
-            c.update(dict.fromkeys(c, 0))
+        zero_counters(counters)
         out = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
@@ -512,7 +697,7 @@ def serve_run(cfg, model, counters):
                              "synthetic", "--limit", "16", "--batch", "8"])
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0
-        launches = {name: dict(c) for name, c in counters.items()}
+        launches = read_counters(counters)
     lines = [json.loads(l) for l in out.getvalue().splitlines()
              if l.startswith("{")]
     preds = [l for l in lines if "pred" in l]
@@ -641,7 +826,7 @@ def phase_serve_mobilevit(gpu_line, feats, x):
         cfg, model, {"fused": fb.LAUNCHES, "flash": fa.LAUNCHES})
     # 2 batches x (7 bottlenecks without SE; 2 stage-1 layers at N=784)
     want = {"fused": {"pool": 0, "main": 14},
-            "flash": {"packed": 4, "heads": 0}}
+            "flash": {"packed": 4, "heads": 0, "dq": 0, "dkv": 0}}
     if launches != want:
         raise AssertionError(f"MobileViT serve: launches {launches}, "
                              f"want {want}")
@@ -678,14 +863,14 @@ def backend_forward(backend, model, x, ref):
     other = MobileViT(num_classes=13, seed=0, attention_backend=backend,
                       **MOBILEVIT_CONFIGS["s"]).cuda().eval()
     other.load_state_dict(model.state_dict())
-    fb.LAUNCHES.update(pool=0, main=0)
-    fa.LAUNCHES.update(packed=0, heads=0)
+    counters = {"fused": fb.LAUNCHES, "flash": fa.LAUNCHES}
+    zero_counters(counters)
     with torch.inference_mode():
         got = other(x).float()
         torch.cuda.synchronize()
-    launches = {"fused": dict(fb.LAUNCHES), "flash": dict(fa.LAUNCHES)}
+    launches = read_counters(counters)
     want = {"fused": {"pool": 0, "main": 7},
-            "flash": {"packed": 0, "heads": 9}}
+            "flash": {"packed": 0, "heads": 9, "dq": 0, "dkv": 0}}
     if launches != want:
         raise AssertionError(f"MobileViT {backend} forward: launches "
                              f"{launches}, want {want}")
@@ -711,53 +896,78 @@ def warm_profiler():
 
 
 def phase_profile(name, model, x):
-    """Where one forward's device time goes: a torch.profiler trace of one
-    bs-8 forward (kernels on) after a warm-up, with device time summed by
-    kernel class (the port's two kernels by name, the rest by name too)
-    and the device's busy and idle share between the forward's first and
-    last kernel. A trace that holds no device events fails the run: the
-    idle share and the device times are read from it."""
+    """Where one bs-8 forward's device time goes (kernels on)."""
+    import torch
+
+    def forward():
+        with torch.inference_mode():
+            model(x)
+    return profile_run(name, forward, "profile")
+
+
+def union_us(spans):
+    """Length of the union of (start, end) spans."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(spans):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return total if cur_e is None else total + cur_e - cur_s
+
+
+def profile_run(name, fn, phase):
+    """A torch.profiler trace of one call of ``fn`` after a warm-up call,
+    with device time summed by kernel class (the port's kernels by name,
+    the rest by name too) and the device's busy and idle share between
+    the first and the last kernel. A trace that holds no device events
+    fails the run: the idle share and the device times are read from
+    it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     t_start = time.perf_counter()
-    with torch.inference_mode():
-        model(x)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            model(x)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         raise AssertionError(f"profile {name}: the trace holds no device "
                              "events")
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, cur_s, cur_e = 0.0, *spans[0]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
-    window = spans[-1][1] - spans[0][0]
+    spans = [(e.time_range.start, e.time_range.end) for e in kernels]
+    busy = union_us(spans)
+    window = max(e for _, e in spans) - min(s for s, _ in spans)
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + (
             e.time_range.end - e.time_range.start)
+    # cuDNN's generic grouped-conv weight gradient (the depthwise convs'
+    # in the fused bottleneck's recompute backward) runs kernels that
+    # overlap in time, so classes also get the union of their spans
     classes = {"flash_attention": ("fwd_kernel<",),
-               "fused_bottleneck": ("main_kernel<", "pool_kernel<")}
+               "flash_attention_bwd": ("dq_kernel<", "dkv_kernel<"),
+               "fused_bottleneck": ("main_kernel<", "pool_kernel<"),
+               "cudnn_grouped_wgrad": ("convolveNd_wgrad_engine<",)}
     by_class = {c: sum(t for n, t in by_name.items()
                        if any(p in n for p in pats))
                 for c, pats in classes.items()}
-    out = {"phase": "profile", "model": name, "wall_ms": wall_ms,
+    busy_by_class = {c: union_us([
+        (e.time_range.start, e.time_range.end) for e in kernels
+        if any(p in e.name for p in pats)]) / 1e3
+        for c, pats in classes.items()}
+    out = {"phase": phase, "model": name, "wall_ms": wall_ms,
            "kernel_window_ms": window / 1e3, "device_busy_ms": busy / 1e3,
            "device_idle_share": 1 - busy / window,
            "kernel_launches": len(kernels),
            "by_class_ms": {c: t / 1e3 for c, t in by_class.items()},
+           "busy_by_class_ms": busy_by_class,
            "other_ms": (sum(by_name.values()) - sum(by_class.values()))
            / 1e3,
            "top_kernels_ms": [[n[:120], t / 1e3] for n, t in sorted(
@@ -765,6 +975,252 @@ def phase_profile(name, model, x):
            "seconds": time.perf_counter() - t_start}
     emit(out)
     return out
+
+
+# --------------------------------------------------------------------------
+# train
+# --------------------------------------------------------------------------
+
+def phase_train_cli(label, cfg_file, counters, per_micro, per_eval):
+    """``python -m picklebot_tpu_torch.cli`` (in process) on
+    ``configs/<cfg_file>`` with TRAIN_CUTS, for TRAIN_STEPS steps, every
+    launch count set to 0 just before and read just after: the counts
+    must be exactly ``per_micro`` per train microbatch (forward and
+    backward) plus ``per_eval`` per eval batch. Then the .pth it wrote
+    serves 8 clips."""
+    import math
+    import torch
+    from picklebot_tpu_torch import cli, serve
+
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(ROOT, "configs", cfg_file)) as f:
+            cfg = json.load(f)
+        reduced = {k: {"from": cfg.get(k), "to": v}
+                   for k, v in TRAIN_CUTS.items() if cfg.get(k) != v}
+        cfg.update(TRAIN_CUTS, checkpoint_dir=os.path.join(tmp, "ck"),
+                   log_dir=os.path.join(tmp, "runs"))
+        path = os.path.join(tmp, "cfg.json")
+        with open(path, "w") as f:
+            json.dump(cfg, f)
+        emit({"phase": "train", "model": label,
+              "config": f"configs/{cfg_file}", "width": "full",
+              "reduced": reduced, "steps": {"from": None,
+                                            "to": TRAIN_STEPS}})
+        zero_counters(counters)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            summary = cli.main([path, "--steps", str(TRAIN_STEPS)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counters(counters)
+        n_micro = TRAIN_STEPS * (TRAIN_CUTS["effective_batch_size"]
+                                 // TRAIN_CUTS["batch_size"])
+        n_eval = -(-TRAIN_CUTS["synthetic_len"] // TRAIN_CUTS["batch_size"])
+        want = {c: {k: per_micro[c][k] * n_micro + per_eval[c][k] * n_eval
+                    for k in per_micro[c]} for c in per_micro}
+        if launches != want:
+            raise AssertionError(f"train {label}: launches {launches}, "
+                                 f"want {want}")
+        losses = summary["train_losses"]
+        if len(losses) != n_micro or not all(
+                math.isfinite(v) for v in losses + [summary[
+                    "final_val_loss"]]):
+            raise AssertionError(f"train {label}: losses {losses}, val "
+                                 f"{summary['final_val_loss']}")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = serve.main([path, "--checkpoint", summary["checkpoint"],
+                             "--csv", "synthetic", "--limit", "8",
+                             "--batch", "8"])
+        preds = [json.loads(line) for line in out.getvalue().splitlines()
+                 if line.startswith('{"clip"')]
+        if rc != 0 or len(preds) != 8:
+            raise AssertionError(f"train {label}: serving the .pth gave rc "
+                                 f"{rc}, {len(preds)} predictions")
+    res = {"phase": "train", "model": label, "launches": launches,
+           "launches_per_microbatch": per_micro,
+           "launches_per_eval_batch": per_eval, "microbatches": n_micro,
+           "eval_batches": n_eval, "train_losses": losses,
+           "val_loss": summary["final_val_loss"], "cli_wall_s": wall,
+           "pth_served": len(preds), "seconds": time.perf_counter() - t_start}
+    emit(res)
+    return res
+
+
+def mobilevit_s(backend="auto"):
+    from picklebot_tpu_torch.models.mobilevit import (MOBILEVIT_CONFIGS,
+                                                      MobileViT)
+    return MobileViT(num_classes=13, seed=0, attention_backend=backend,
+                     **MOBILEVIT_CONFIGS["s"])
+
+
+def large3d():
+    from picklebot_tpu_torch.models.mobilenet3d import MobileNetLarge3D
+    return MobileNetLarge3D(13, seed=0)
+
+
+def train_step_for(model):
+    """The port's train step (AdamW8bit, bf16, constant lr) on the card."""
+    from picklebot_tpu_torch.core.policy import DtypePolicy
+    from picklebot_tpu_torch.train.optim import AdamW8bit
+    from picklebot_tpu_torch.train.step import make_train_step
+    opt = AdamW8bit(model.parameters(), weight_decay=5e-4)
+    return make_train_step(model, opt, "CE", lambda epoch: 3e-4,
+                           DtypePolicy.bf16(), device="cuda"), opt
+
+
+def phase_train_backends(counters, feats, labels):
+    """One MobileViT-s train step (one bs-8 microbatch) each with
+    'pallas' and 'pallas_packed': every layer's attention forward and
+    backward on the per-head kernels, 9 launches each."""
+    import math
+    import torch
+    out = {}
+    want = {"fused": {"pool": 0, "main": 7},
+            "flash": {"packed": 0, "heads": 9, "dq": 9, "dkv": 9}}
+    for backend in ("pallas", "pallas_packed"):
+        step, _ = train_step_for(mobilevit_s(backend).cuda())
+        zero_counters(counters)
+        metrics = step(0, feats[None], labels[None])
+        torch.cuda.synchronize()
+        launches = read_counters(counters)
+        loss = float(metrics["loss"][0])
+        if launches != want or not math.isfinite(loss):
+            raise AssertionError(f"train step {backend}: launches "
+                                 f"{launches} (want {want}), loss {loss}")
+        out[backend] = {"launches": launches, "loss": loss}
+        emit({"phase": "train", "model": f"MobileViT-s {backend}",
+              **out[backend]})
+    return out
+
+
+def grads_against_plain(label, make_model, x, labels):
+    """One bs-8 train-mode step's loss and every parameter's gradient,
+    kernel path against the plain path (kernels=False), from the same
+    seeded weights, dropout p set to 0, in bf16 and in f32 with TF32 off;
+    the bounds are stated with GRAD_F32_RMS_TOL above."""
+    import torch
+    from picklebot_tpu_torch.core.policy import DtypePolicy
+    from picklebot_tpu_torch.ops.linear import ChannelDropout, Dropout
+    from picklebot_tpu_torch.train.losses import cross_entropy
+    lbl = torch.as_tensor(labels, device="cuda")
+    res = {}
+    for dtype, policy in (("bf16", DtypePolicy.bf16()),
+                          ("f32", DtypePolicy.f32())):
+        for kernels in (True, False):
+            m = make_model().cuda().train()
+            for mod in m.modules():
+                if isinstance(mod, (ChannelDropout, Dropout)):
+                    mod.p = 0.0
+            with policy.precision():
+                loss = cross_entropy(m(x.to(policy.compute_dtype),
+                                       kernels=kernels), lbl)
+                loss.backward()
+            res[dtype, kernels] = (loss.item(), {
+                n: p.grad.float() for n, p in m.named_parameters()})
+            del m, loss
+
+    def rms(t):
+        return t.pow(2).mean().sqrt().item()
+
+    def cos(a, b):
+        return torch.nn.functional.cosine_similarity(
+            a.flatten(), b.flatten(), dim=0).item()
+
+    bad = []
+    for dtype, tol in (("bf16", TRAIN_LOSS_REL_TOL),
+                       ("f32", F32_LOSS_REL_TOL)):
+        got, want = res[dtype, True][0], res[dtype, False][0]
+        if abs(got - want) > tol * abs(want):
+            bad.append((f"{dtype} loss", got, want))
+    truth, f32_k = res["f32", False][1], res["f32", True][1]
+    bf16_k, bf16_p = res["bf16", True][1], res["bf16", False][1]
+    scale = {n: rms(g) for n, g in truth.items()}
+    floor = GRAD_NOISE_FLOOR * sorted(scale.values())[len(scale) // 2]
+    stats, noise = {}, []
+    for n, ref in truth.items():
+        if scale[n] < floor:
+            noise.append(n)
+            if rms(f32_k[n] - ref) > floor:
+                bad.append((n, "noise leaf", rms(f32_k[n] - ref)))
+            continue
+        st = stats[n] = dict(
+            f32=rms(f32_k[n] - ref) / scale[n], f32_cos=cos(f32_k[n], ref),
+            bf16=rms(bf16_k[n] - bf16_p[n]) / rms(bf16_p[n]),
+            bf16_cos=cos(bf16_k[n], bf16_p[n]),
+            kernel_vs_f32=rms(bf16_k[n] - ref) / scale[n],
+            plain_vs_f32=rms(bf16_p[n] - ref) / scale[n])
+        if (st["f32"] > GRAD_F32_RMS_TOL or st["f32_cos"] < GRAD_F32_MIN_COS
+                or st["kernel_vs_f32"] > GRAD_BF16_FACTOR
+                * st["plain_vs_f32"] + GRAD_BF16_SLACK):
+            bad.append((n, st))
+    worst = {k: max(v[k] for v in stats.values())
+             for k in ("f32", "bf16", "kernel_vs_f32", "plain_vs_f32")}
+    worst.update(f32_cos=min(v["f32_cos"] for v in stats.values()),
+                 bf16_cos=min(v["bf16_cos"] for v in stats.values()),
+                 kernel_over_plain_vs_f32=max(
+                     v["kernel_vs_f32"] / v["plain_vs_f32"]
+                     for v in stats.values()))
+    median = {k: sorted(v[k] for v in stats.values())[len(stats) // 2]
+              for k in ("kernel_vs_f32", "plain_vs_f32", "bf16")}
+    out = {"phase": "train_grads", "model": label,
+           "loss": {f"{d} {'kernels' if k else 'plain'}": v[0]
+                    for (d, k), v in res.items()},
+           "leaves": len(truth), "noise_leaves": noise,
+           "noise_floor": floor, "worst": worst, "median": median}
+    emit(out)
+    if bad:
+        raise AssertionError(f"{label} grads against plain: {bad[:6]}")
+    return dict(out, per_leaf=stats)
+
+
+def phase_train_timing(label, make_model, feats, x, labels, gpu_line):
+    """Train step (bs 8, one microbatch, uint8 host batch -> optimizer
+    update) by host clock after a synchronize, samples/s, peak device
+    memory over those steps; forward (train mode, with a graph),
+    forward+backward and the optimizer update alone by CUDA events; a
+    trace of one train step."""
+    import torch
+    from picklebot_tpu_torch.ops.linear import dropout_rng
+    from picklebot_tpu_torch.train.losses import cross_entropy
+    t_start = time.perf_counter()
+    model = make_model().cuda()
+    step, opt = train_step_for(model)
+    f, lb = feats[None], labels[None]
+    for _ in range(2):
+        step(0, f, lb)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step(0, f, lb)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / reps * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    lbl = torch.as_tensor(labels, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model.train()
+
+    def forward():
+        with dropout_rng(gen):
+            return cross_entropy(model(x), lbl)
+    fwd_ms = time_ms(forward, reps)
+    fwd_bwd_ms = time_ms(lambda: forward().backward(), reps)
+    opt_ms = time_ms(lambda: opt.step(3e-4), reps)
+    res = {"phase": "train_timing", "model": label, "batch": 8,
+           "clip": [32, 224, 224], "dtype": "bfloat16",
+           "optimizer": "adamw8bit", "train_step_ms": step_ms,
+           "samples_per_s": 8e3 / step_ms, "forward_ms": fwd_ms,
+           "backward_ms": fwd_bwd_ms - fwd_ms, "optimizer_ms": opt_ms,
+           "peak_memory_bytes": peak, "card": gpu_line}
+    emit(res)
+    res["profile"] = profile_run(f"{label} train step",
+                                 lambda: step(0, f, lb), "train_profile")
+    res["seconds"] = time.perf_counter() - t_start
+    return res
 
 
 def fused_entry(name, line, per, vit_per, launches_by_run):
@@ -819,6 +1275,37 @@ def flash_entry(name, kernel, line, rows, launches_by_run, per_forward):
     return out
 
 
+def flash_bwd_entry(name, kernel, line, rows, entry, launches_by_run,
+                    per_step):
+    """Summary entry of one flash backward kernel on one layout: times
+    summed over the launches of one bs-8 MobileViT-s train microbatch that
+    takes it (``per_step``: {N: launches}). The plain and library times
+    are those of the whole backward (both kernels' work)."""
+    by_n = {r["n"]: r for r in rows if r["entry"] == entry}
+
+    def total(f):
+        return sum(f(by_n[n]) * c for n, c in per_step.items())
+    parts = ("dq",) if kernel == "dq" else ("dk", "dv")
+    return {"name": name, "route": "cuda",
+            "source": "picklebot_tpu_torch/csrc/flash_attention.cu",
+            "replaces": line,
+            "launches": sum(r[kernel] for r in launches_by_run.values()),
+            "launches_by_run": {k: r[kernel]
+                                for k, r in launches_by_run.items()},
+            "max_abs_err": max(r[p]["err"] for r in by_n.values()
+                               for p in parts),
+            "ms": total(lambda r: r[f"ms_{kernel}"]),
+            "plain_ms": total(lambda r: r["plain_ms"]),
+            "bound_ms": total(lambda r: r[f"bound_{kernel}"]["bound_ms"]),
+            "bound_by": ("bytes" if total(
+                lambda r: r[f"bound_{kernel}"]["bytes_ms"]) >= total(
+                lambda r: r[f"bound_{kernel}"]["ops_ms"])
+                else "operations"),
+            "library_ms": total(lambda r: r["library_ms"]),
+            "plain_and_library_cover": "the whole backward",
+            "per_microbatch": {str(n): c for n, c in per_step.items()}}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -850,7 +1337,7 @@ def main():
     seconds = {"build": time.perf_counter() - t0,
                "profiler_warmup": warm_s}
     t0 = time.perf_counter()
-    rows, per, vit_per, flash = phase_kernels()
+    rows, per, vit_per, flash, flash_bwd = phase_kernels()
     seconds["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     feats, x = clip_batch()
@@ -861,6 +1348,42 @@ def main():
     seconds["serve_mobilevit"] = time.perf_counter() - t0
     seconds["profile_large3d"] = large["profile"]["seconds"]
     seconds["profile_mobilevit"] = vit["profile"]["seconds"]
+
+    from picklebot_tpu_torch.ops import flash_attention as fa
+    from picklebot_tpu_torch.ops import fused_bottleneck as fb
+    import numpy as np
+    counters = {"fused": fb.LAUNCHES, "flash": fa.LAUNCHES}
+    no_flash = dict.fromkeys(fa.LAUNCHES, 0)
+    labels = np.arange(8) % 13
+    train = {}
+    t0 = time.perf_counter()
+    train["MobileViT-s"] = phase_train_cli(
+        "MobileViT-s", "mobilevit_s.json", counters,
+        per_micro={"fused": {"pool": 0, "main": 7},
+                   "flash": {"packed": 2, "heads": 0, "dq": 2, "dkv": 2}},
+        per_eval={"fused": {"pool": 0, "main": 7},
+                  "flash": {"packed": 2, "heads": 0, "dq": 0, "dkv": 0}})
+    seconds["train_mobilevit"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train["MobileNetLarge3D"] = phase_train_cli(
+        "MobileNetLarge3D", "mobilenet_large_50k.json", counters,
+        per_micro={"fused": {"pool": 8, "main": 15}, "flash": no_flash},
+        per_eval={"fused": {"pool": 8, "main": 15}, "flash": no_flash})
+    seconds["train_large3d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train["backends"] = phase_train_backends(counters, feats, labels)
+    train["grads"] = {
+        "MobileViT-s": grads_against_plain("MobileViT-s", mobilevit_s, x,
+                                           labels),
+        "MobileNetLarge3D": grads_against_plain("MobileNetLarge3D", large3d,
+                                                x, labels)}
+    seconds["train_backends_and_grads"] = time.perf_counter() - t0
+    train["timing"] = {
+        label: phase_train_timing(label, make, feats, x, labels, gpu_line)
+        for label, make in (("MobileViT-s", mobilevit_s),
+                            ("MobileNetLarge3D", large3d))}
+    seconds["train_timing"] = sum(t["seconds"]
+                                  for t in train["timing"].values())
     seconds["total"] = time.perf_counter() - T_START
     emit({"phase": "seconds", **seconds})
 
@@ -868,28 +1391,53 @@ def main():
     runs = {"serve_large3d": large["launches"],
             "serve_mobilevit": vit["launches"]["fused"],
             **{f"forward_mobilevit_{b}": vit[b]["launches"]["fused"]
+               for b in ("pallas", "pallas_packed")},
+            **{f"train_{m}": train[m]["launches"]["fused"]
+               for m in ("MobileViT-s", "MobileNetLarge3D")},
+            **{f"train_step_mobilevit_{b}":
+               train["backends"][b]["launches"]["fused"]
                for b in ("pallas", "pallas_packed")}}
     flash_runs = {"serve_mobilevit": vit["launches"]["flash"],
                   **{f"forward_mobilevit_{b}": vit[b]["launches"]["flash"]
-                     for b in ("pallas", "pallas_packed")}}
+                     for b in ("pallas", "pallas_packed")},
+                  "train_MobileViT-s":
+                  train["MobileViT-s"]["launches"]["flash"]}
+    heads_bwd_runs = {f"train_step_mobilevit_{b}":
+                      train["backends"][b]["launches"]["flash"]
+                      for b in ("pallas", "pallas_packed")}
+    flash_runs.update(heads_bwd_runs)
     tpu = "picklebot_tpu/ops/pallas/"
-    stage1 = VIT_ATTENTION[0][0]
+    stage1 = {VIT_ATTENTION[0][0]: VIT_ATTENTION[0][1]}
     kernels = [
         fused_entry("pool", 86, per, vit_per, runs),
         fused_entry("main", 103, per, vit_per, runs),
         flash_entry("flash_packed_fwd", "packed",
-                    f"{tpu}flash_packed.py:122", flash, flash_runs,
-                    {stage1: VIT_ATTENTION[0][1]}),
+                    f"{tpu}flash_packed.py:122", flash, flash_runs, stage1),
         flash_entry("flash_fwd", "heads", f"{tpu}flash_attention.py:47",
                     flash, flash_runs, dict(VIT_ATTENTION)),
+        flash_bwd_entry("flash_packed_bwd_dq", "dq",
+                        f"{tpu}flash_packed.py:271", flash_bwd, "packed",
+                        {"train_MobileViT-s":
+                         train["MobileViT-s"]["launches"]["flash"]}, stage1),
+        flash_bwd_entry("flash_packed_bwd_dkv", "dkv",
+                        f"{tpu}flash_packed.py:304", flash_bwd, "packed",
+                        {"train_MobileViT-s":
+                         train["MobileViT-s"]["launches"]["flash"]}, stage1),
+        flash_bwd_entry("flash_bwd_dq", "dq", f"{tpu}flash_attention.py:146",
+                        flash_bwd, "heads", heads_bwd_runs,
+                        dict(VIT_ATTENTION)),
+        flash_bwd_entry("flash_bwd_dkv", "dkv",
+                        f"{tpu}flash_attention.py:173", flash_bwd, "heads",
+                        heads_bwd_runs, dict(VIT_ATTENTION)),
     ]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"),
               "w") as f:
         json.dump({"card": gpu_line, "seconds": seconds,
                    "geometries": rows, "flash": flash,
+                   "flash_bwd": flash_bwd,
                    "serve": {"MobileNetLarge3D": large, "MobileViT-s": vit},
-                   "kernels": kernels}, f, indent=1)
+                   "train": train, "kernels": kernels}, f, indent=1)
     print(gpu_line, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -17,10 +17,13 @@ Backends, dispatched as in the JAX package:
   pallas_packed  the per-head kernel on the (..., N, 3, H, D) qkv layout
                  (``flash_attention_qkvpacked``)
 The kernels are those of ``ops/flash_attention.py``; on a CPU tensor they
-run their plain versions. ``forward(x, kernels=False)`` runs ``sdpa``
-whatever the backend, on the card too: the reference the kernels are held
-against. Sequence parallelism and train-mode attention dropout are not
-ported (ROADMAP.md).
+run their plain versions, and in training their autograd Functions (the
+backward kernels). ``forward(x, kernels=False)`` runs ``sdpa`` whatever
+the backend, on the card too: the reference the kernels are held against.
+In train mode with dropout > 0 every backend runs ``sdpa`` with
+attention-probability dropout, as the JAX package falls back to XLA there
+(the kernels have no dropout path). Sequence parallelism is not ported
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -79,10 +82,8 @@ class MultiHeadAttention(nn.Module):
                 and n >= _PACKED_MIN_SEQ)
 
     def forward(self, x, kernels: bool = True):
-        if self.training and self.dropout_p > 0:
-            raise NotImplementedError(
-                "attention dropout in train mode comes with the training "
-                "slice of the port (ROADMAP.md, queue A, slice 2)")
+        dropout = self.dropout_p if self.training else 0.0
+        kernels = kernels and dropout == 0.0
         x = self.norm(x)
         qkv = self.to_qkv(x)                            # (..., N, 3*H*D)
         if kernels and self.uses_head_packed(x.shape[-2]):
@@ -98,6 +99,6 @@ class MultiHeadAttention(nn.Module):
             if kernels and self.backend == "pallas":
                 out = flash_attention(q, k, v, self.scale)
             else:
-                out = sdpa(q, k, v, self.scale)
+                out = sdpa(q, k, v, self.scale, dropout_p=dropout)
             out = merge_heads(out)
         return self.to_out(out)

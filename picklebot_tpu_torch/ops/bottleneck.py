@@ -10,9 +10,11 @@ the reference's quirks kept for checkpoint parity:
   * channel dropout at the end (train only).
 
 On a CUDA tensor the conv chain (expand, depthwise, SE, project) runs in
-the fused kernels of ``ops/fused_bottleneck.py``; on the CPU, or with
-``kernels=False``, it runs the plain chain of modules. The folded forwards
-of the JAX package (``early_fold``, ``fold_span``) are not ported.
+the fused kernels of ``ops/fused_bottleneck.py`` (in training through its
+``FusedBottleneckFn``, whose backward recomputes the plain chain); on the
+CPU, or with ``kernels=False``, it runs the plain chain of modules. The
+folded forwards of the JAX package (``early_fold``, ``fold_span``) are
+not ported.
 """
 
 from __future__ import annotations

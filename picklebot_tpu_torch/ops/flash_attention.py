@@ -1,29 +1,36 @@
-"""Flash-attention forward: softmax(scale * Q K^T) V without the (N, N) score
-matrix in device memory.
+"""Flash attention: softmax(scale * Q K^T) V and its gradients without the
+(N, N) score matrix in device memory.
 
-Counterpart of ``picklebot_tpu/ops/pallas/flash_packed.py`` (forward:
-``_fwd_kernel`` / ``_fwd_kernel_nolse``) and
-``picklebot_tpu/ops/pallas/flash_attention.py`` (forward ``_fwd_kernel``).
-On a CUDA tensor the work runs in the hand-written kernel of
-``csrc/flash_attention.cu`` (see the note there for its bound on the H100
-and its design); on a CPU tensor each function computes its plain PyTorch
-version instead. ``LAUNCHES`` counts kernel launches per entry:
+Counterpart of ``picklebot_tpu/ops/pallas/flash_packed.py`` (forward
+``_fwd_kernel`` / ``_fwd_kernel_nolse``, backward ``_dq_kernel`` /
+``_dkv_kernel``) and ``picklebot_tpu/ops/pallas/flash_attention.py`` (the
+same three per head). On a CUDA tensor the work runs in the hand-written
+kernels of ``csrc/flash_attention.cu`` (see the note there for their bounds
+on the H100 and their design); on a CPU tensor each function computes its
+plain PyTorch version instead. ``LAUNCHES`` counts kernel launches: the
+forward per entry, the backward per kernel (one dQ and one dK/dV launch
+per backward, whatever the layout):
 
   packed  ``flash_attention_packed``: (..., N, H*D), heads side by side in
           the last axis, as the fused qkv projection leaves them. The
-          kernel reads q, k and v in place through their strides (the
+          kernels read q, k and v in place through their strides (the
           qkv split's views have token stride 3*H*D): no copies.
   heads   ``flash_attention`` on (..., N, D), one head per sequence, and
           ``flash_attention_qkvpacked`` on (..., N, 3, H, D) ->
           (..., N, H, D), both read in place where the leading axes merge.
 
-The layouts at these functions are the JAX package's. Only the forward is
-ported: the backward kernels come with the MobileViT training slice
-(ROADMAP.md). Numerics follow the Pallas kernels: f32 scores and softmax
-statistics, P rounded to v's dtype before the PV product, accumulated in
-f32, the output cast at the end. The plain versions are ``sdpa`` (the
-JAX package's ``sdpa_xla``: f32 logits and softmax, probabilities rounded
-to v's dtype, the product accumulated in f32) with split and merged heads.
+The layouts at these functions are the JAX package's. When autograd is on
+and an input requires grad, each entry runs a ``torch.autograd.Function``:
+its forward is the kernel with the f32 logsumexp, its backward computes
+D = rowsum(dO * O) in f32 in torch, then launches the dQ and the dK/dV
+kernels (on the CPU: the plain forward with lse and
+``flash_backward_reference``). Otherwise the forward runs alone, without
+the lse. Numerics follow the Pallas kernels: f32 scores and softmax
+statistics, P rounded to v's dtype before the PV product (to dO's before
+dV), dS to the inputs' dtype before dQ and dK, f32 accumulation, outputs
+cast at the end. The plain forward is ``sdpa`` (the JAX package's
+``sdpa_xla``: f32 logits and softmax, probabilities rounded to v's dtype,
+the product accumulated in f32) with split and merged heads.
 """
 
 from __future__ import annotations
@@ -33,7 +40,9 @@ import math
 
 import torch
 
-LAUNCHES = {"packed": 0, "heads": 0}
+from picklebot_tpu_torch.ops.linear import dropout_mask
+
+LAUNCHES = {"packed": 0, "heads": 0, "dq": 0, "dkv": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64)
@@ -44,17 +53,44 @@ _FNS = {}
 # plain versions
 # --------------------------------------------------------------------------
 
-def sdpa(q, k, v, scale: float, with_lse: bool = False):
+def sdpa(q, k, v, scale: float, with_lse: bool = False,
+         dropout_p: float = 0.0):
     """Softmax attention over (..., N, D): f32 logits and softmax, the
     probabilities rounded to v's dtype, the product accumulated in f32
     and cast to v's dtype. With ``with_lse`` also the f32 (..., N)
-    logsumexp of the scaled logits."""
+    logsumexp of the scaled logits. ``dropout_p`` > 0 drops f32
+    probabilities (inverted scaling) with a mask from the current
+    ``dropout_rng`` before the rounding, as ``sdpa_xla`` does in train
+    mode."""
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = torch.matmul(probs.float(), v.float()).to(v.dtype)
+    probs = torch.softmax(logits, dim=-1)
+    if dropout_p > 0.0:
+        keep = 1.0 - dropout_p
+        probs = torch.where(dropout_mask(probs.shape, keep, probs.device),
+                            probs / keep, 0.0)
+    out = torch.matmul(probs.to(v.dtype).float(), v.float()).to(v.dtype)
     if with_lse:
         return out, torch.logsumexp(logits, dim=-1)
     return out
+
+
+def flash_backward_reference(q, k, v, o, lse, do, scale: float):
+    """Plain version of the backward kernels, per head: q, k, v, the
+    forward's output o and the incoming gradient do (..., N, D), its f32
+    lse (..., N) -> (dq, dk, dv) in the inputs' dtype. The same algebra
+    and roundings as the kernels: P = exp(scale * q k^T - lse), dP = do
+    v^T, D = rowsum(do * o), dS = P * (dP - D); dV = round(P)^T do,
+    dQ = scale * round(dS) k, dK = scale * round(dS)^T q, in f32."""
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale
+                  - lse[..., None])
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    dd = (dof * o.float()).sum(-1, keepdim=True)
+    ds = (p * (dp - dd)).to(q.dtype).float()
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), dof)
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def split_heads(t, heads: int):
@@ -65,6 +101,11 @@ def split_heads(t, heads: int):
 def merge_heads(t):
     """(..., H, N, D) -> (..., N, H*D)."""
     return t.transpose(-2, -3).flatten(-2)
+
+
+def _qkv_split(qkv):
+    """(..., N, 3, H, D) -> q, k, v views (..., H, N, D)."""
+    return [qkv.select(-3, i).transpose(-2, -3) for i in range(3)]
 
 
 def flash_attention_packed_reference(q, k, v, heads: int, scale=None,
@@ -86,23 +127,26 @@ def flash_attention_reference(q, k, v, scale=None):
 
 def flash_attention_qkvpacked_reference(qkv, scale=None):
     """Plain version of ``flash_attention_qkvpacked``."""
-    q, k, v = (qkv.select(-3, i).transpose(-2, -3) for i in range(3))
-    return flash_attention_reference(q, k, v, scale).transpose(-2, -3)
+    return flash_attention_reference(*_qkv_split(qkv),
+                                     scale).transpose(-2, -3)
 
 
 # --------------------------------------------------------------------------
-# kernel
+# kernels
 # --------------------------------------------------------------------------
 
-def _fn():
-    if "fwd" not in _FNS:
+def _fn(name):
+    if not _FNS:
         from picklebot_tpu_torch.utils.build import load_library
         lib = load_library("flash_attention")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fa_fwd.argtypes = [p] * 5 + [i] * 5 + [ctypes.c_float, p, p]
-        lib.fa_fwd.restype = i
-        _FNS["fwd"] = lib.fa_fwd
-    return _FNS["fwd"]
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.fa_fwd.argtypes = [p] * 5 + [i] * 5 + [f, p, p]
+        for bwd in (lib.fa_bwd_dq, lib.fa_bwd_dkv):
+            bwd.argtypes = [p] * 9 + [i] * 5 + [f, p, p]
+        for fn in (lib.fa_fwd, lib.fa_bwd_dq, lib.fa_bwd_dkv):
+            fn.restype = i
+        _FNS.update(fwd=lib.fa_fwd, dq=lib.fa_bwd_dq, dkv=lib.fa_bwd_dkv)
+    return _FNS[name]
 
 
 def _packed_scale(q, heads, scale):
@@ -129,19 +173,33 @@ def _check(q, k, v):
                              f"{q.dtype} {tuple(q.shape)}")
 
 
-def _launch(q4, k4, v4, o4, lse3, scale: float):
-    """One kernel launch on (S, H, N, D) views, stride 1 along D; lse3 an
-    f32 (S, H, N) view with stride 1 along N, or None."""
-    s, h, n, d = q4.shape
+def _strides(views):
+    """(s, h, n) strides of (S, H, N, D) views, each with stride 1
+    along D."""
+    d = views[0].shape[-1]
     if d not in _HEAD_DIMS:
         raise ValueError(f"flash attention kernel: head dim {d} (takes "
                          f"{_HEAD_DIMS})")
-    strides = []
-    for t in (q4, k4, v4, o4):
+    out = []
+    for t in views:
         if t.stride(-1) != 1:
             raise ValueError("flash attention kernel: the head dim must "
                              "have stride 1")
-        strides += t.stride()[:3]
+        out += t.stride()[:3]
+    return out
+
+
+def _raise_on(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"flash attention {what} kernel: launch failed "
+                           f"with CUDA error {err}")
+
+
+def _launch(q4, k4, v4, o4, lse3, scale: float):
+    """One forward launch on (S, H, N, D) views, stride 1 along D; lse3 an
+    f32 (S, H, N) view with stride 1 along N, or None."""
+    s, h, n, d = q4.shape
+    strides = _strides((q4, k4, v4, o4))
     if lse3 is not None:
         assert lse3.dtype == torch.float32 and lse3.stride(-1) == 1
         strides += lse3.stride()[:2]
@@ -150,13 +208,51 @@ def _launch(q4, k4, v4, o4, lse3, scale: float):
     arr = (ctypes.c_longlong * 14)(*strides)
     with torch.cuda.device(q4.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _fn()(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
-                    o4.data_ptr(), 0 if lse3 is None else lse3.data_ptr(),
-                    _DTYPES[q4.dtype], s, h, n, d, float(scale),
-                    ctypes.addressof(arr), stream)
-    if err != 0:
-        raise RuntimeError(f"flash attention kernel: launch failed with "
-                           f"CUDA error {err}")
+        err = _fn("fwd")(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
+                         o4.data_ptr(),
+                         0 if lse3 is None else lse3.data_ptr(),
+                         _DTYPES[q4.dtype], s, h, n, d, float(scale),
+                         ctypes.addressof(arr), stream)
+    _raise_on(err, "forward")
+
+
+def _backward_d(o4, g4):
+    """D = rowsum(dO * O) in f32: the contiguous (S, H, N) tensor that
+    the backward kernels read beside lse."""
+    return (g4.float() * o4.float()).sum(-1).contiguous()
+
+
+def _launch_backward_kernel(name, q4, k4, v4, g4, lse3, dd, dq4, dk4, dv4,
+                            scale: float):
+    """One launch of the ``dq`` or the ``dkv`` kernel on (S, H, N, D)
+    views (g4 the gradient of the forward's output, dq4/dk4/dv4 the
+    outputs to fill) with the contiguous f32 (S, H, N) lse3 and dd."""
+    s, h, n, d = q4.shape
+    for t in (lse3, dd):
+        if t.dtype != torch.float32 or t.shape != (s, h, n) or \
+                not t.is_contiguous():
+            raise ValueError("flash attention backward: lse and D must be "
+                             f"contiguous f32 {(s, h, n)} tensors")
+    strides = _strides((q4, k4, v4, g4, dq4, dk4, dv4)) + list(
+        dd.stride()[:2])
+    arr = (ctypes.c_longlong * 23)(*strides)
+    with torch.cuda.device(q4.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _fn(name)(*(t.data_ptr() for t in (q4, k4, v4, g4, lse3, dd,
+                                                  dq4, dk4, dv4)),
+                        _DTYPES[q4.dtype], s, h, n, d, float(scale),
+                        ctypes.addressof(arr), stream)
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+
+
+def _launch_backward(q4, k4, v4, o4, g4, lse3, dq4, dk4, dv4,
+                     scale: float):
+    """D, then the dQ and the dK/dV launches (o4 the forward's output)."""
+    dd = _backward_d(o4, g4)
+    for name in ("dq", "dkv"):
+        _launch_backward_kernel(name, q4, k4, v4, g4, lse3, dd, dq4, dk4,
+                                dv4, scale)
 
 
 def _as_seq_head(t):
@@ -167,63 +263,195 @@ def _as_seq_head(t):
     return t.reshape(math.prod(lead) // h, h, *t.shape[-2:])
 
 
-def flash_attention_packed(q, k, v, heads: int, scale=None,
-                           with_lse: bool = False):
-    """Head-packed flash attention: q, k, v (..., N, H*D) -> (..., N, H*D)
-    in q's dtype, and with ``with_lse`` also the f32 (..., H, N)
-    logsumexp. The kernel on a CUDA tensor, the plain version on a CPU
-    one."""
+def _packed_views(heads, *ts):
+    """(..., N, H*D) -> (S, H, N, D) views (copies for an input whose
+    leading axes cannot merge; outputs are allocated contiguous)."""
+    n, inner = ts[0].shape[-2:]
+    s = math.prod(ts[0].shape[:-2])
+    return [t.reshape(s, n, heads, inner // heads).transpose(1, 2)
+            for t in ts]
+
+
+def _packed_forward(q, k, v, heads, scale, with_lse):
+    """(out, lse or None): the kernel on a CUDA tensor, the plain version
+    on a CPU one."""
     if q.device.type == "cpu":
-        return flash_attention_packed_reference(q, k, v, heads, scale,
-                                                with_lse)
+        res = flash_attention_packed_reference(q, k, v, heads, scale,
+                                               with_lse)
+        return res if with_lse else (res, None)
     _check(q, k, v)
-    scale = _packed_scale(q, heads, scale)
-    lead, (n, inner) = q.shape[:-2], q.shape[-2:]
-    s = math.prod(lead)
-
-    def view(t):        # (..., N, H*D) -> (S, H, N, D), in place if it can
-        return t.reshape(s, n, heads, inner // heads).transpose(1, 2)
-
+    lead, n = q.shape[:-2], q.shape[-2]
     out = torch.empty(q.shape, device=q.device, dtype=q.dtype)
     lse = (torch.empty(lead + (heads, n), device=q.device,
                        dtype=torch.float32) if with_lse else None)
-    _launch(view(q), view(k), view(v),
-            out.view(s, n, heads, -1).transpose(1, 2),
-            None if lse is None else lse.view(s, heads, n), scale)
+    q4, k4, v4, o4 = _packed_views(heads, q, k, v, out)
+    _launch(q4, k4, v4, o4,
+            None if lse is None else lse.view(q4.shape[:3]), scale)
     LAUNCHES["packed"] += 1
-    return (out, lse) if with_lse else out
+    return out, lse
 
 
-def flash_attention(q, k, v, scale=None):
-    """Per-head flash attention over (..., N, D) -> (..., N, D). The
-    kernel on a CUDA tensor, the plain version on a CPU one."""
+def _heads_forward(q, k, v, scale, with_lse):
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, scale)
+        res = sdpa(q, k, v, scale, with_lse)
+        return res if with_lse else (res, None)
     _check(q, k, v)
     q4 = _as_seq_head(q)
     out = torch.empty(q.shape, device=q.device, dtype=q.dtype)
-    _launch(q4, _as_seq_head(k), _as_seq_head(v), out.view(q4.shape), None,
-            q.shape[-1] ** -0.5 if scale is None else scale)
+    lse = (torch.empty(q.shape[:-1], device=q.device, dtype=torch.float32)
+           if with_lse else None)
+    _launch(q4, _as_seq_head(k), _as_seq_head(v), out.view(q4.shape),
+            None if lse is None else lse.view(q4.shape[:3]), scale)
     LAUNCHES["heads"] += 1
-    return out
+    return out, lse
 
 
-def flash_attention_qkvpacked(qkv, scale=None):
-    """Packed-qkv entry: qkv (..., N, 3, H, D) -> (..., N, H, D), the
-    per-head kernel reading q, k and v in place."""
-    if qkv.shape[-3] != 3:
-        raise ValueError(f"expected (..., N, 3, H, D), got "
-                         f"{tuple(qkv.shape)}")
+def _qkvpacked_forward(qkv, scale, with_lse):
+    q, k, v = _qkv_split(qkv)
     if qkv.device.type == "cpu":
-        return flash_attention_qkvpacked_reference(qkv, scale)
-    q, k, v = (qkv.select(-3, i).transpose(-2, -3) for i in range(3))
+        res = sdpa(q, k, v, scale, with_lse)
+        out, lse = res if with_lse else (res, None)
+        return out.transpose(-2, -3), lse
     _check(q, k, v)
     q4 = _as_seq_head(q)
     s, h, n, d = q4.shape
     out = torch.empty(qkv.shape[:-3] + qkv.shape[-2:], device=qkv.device,
                       dtype=qkv.dtype)
+    lse = (torch.empty(q.shape[:-1], device=qkv.device, dtype=torch.float32)
+           if with_lse else None)
     _launch(q4, _as_seq_head(k), _as_seq_head(v),
-            out.view(s, n, h, d).transpose(1, 2), None,
-            d ** -0.5 if scale is None else scale)
+            out.view(s, n, h, d).transpose(1, 2),
+            None if lse is None else lse.view(s, h, n), scale)
     LAUNCHES["heads"] += 1
-    return out
+    return out, lse
+
+
+def _needs_graph(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+class FlashPackedFn(torch.autograd.Function):
+    """``flash_attention_packed`` under autograd: the forward kernel with
+    lse, then D, the dQ and the dK/dV kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, heads, scale):
+        out, lse = _packed_forward(q, k, v, heads, scale, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.heads, ctx.scale = heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        heads, scale = ctx.heads, ctx.scale
+        if q.device.type == "cpu":
+            grads = flash_backward_reference(
+                *(split_heads(t, heads) for t in (q, k, v, out)), lse,
+                split_heads(g, heads), scale)
+            return (*(merge_heads(t) for t in grads), None, None)
+        grads = [torch.empty(q.shape, device=q.device, dtype=q.dtype)
+                 for _ in range(3)]
+        views = _packed_views(heads, q, k, v, out, g.contiguous(), *grads)
+        _launch_backward(*views[:5], lse.view(views[0].shape[:3]),
+                         *views[5:], scale)
+        return (*grads, None, None)
+
+
+class FlashFn(torch.autograd.Function):
+    """``flash_attention`` under autograd (per head)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = _heads_forward(q, k, v, scale, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            return (*flash_backward_reference(q, k, v, out, lse, g,
+                                              ctx.scale), None)
+        q4 = _as_seq_head(q)
+        grads = [torch.empty(q.shape, device=q.device, dtype=q.dtype)
+                 for _ in range(3)]
+        _launch_backward(q4, _as_seq_head(k), _as_seq_head(v),
+                         out.view(q4.shape), g.contiguous().view(q4.shape),
+                         lse.view(q4.shape[:3]),
+                         *(t.view(q4.shape) for t in grads), ctx.scale)
+        return (*grads, None)
+
+
+class FlashQKVPackedFn(torch.autograd.Function):
+    """``flash_attention_qkvpacked`` under autograd: the gradient is one
+    (..., N, 3, H, D) tensor, which the backward kernels write in place
+    through its q, k and v views."""
+
+    @staticmethod
+    def forward(ctx, qkv, scale):
+        out, lse = _qkvpacked_forward(qkv, scale, True)
+        ctx.save_for_backward(qkv, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, out, lse = ctx.saved_tensors
+        if qkv.device.type == "cpu":
+            grads = flash_backward_reference(
+                *_qkv_split(qkv), out.transpose(-2, -3), lse,
+                g.transpose(-2, -3), ctx.scale)
+            return torch.stack([t.transpose(-2, -3) for t in grads],
+                               dim=-3), None
+        q4, k4, v4 = (_as_seq_head(t) for t in _qkv_split(qkv))
+        s, h, n, d = q4.shape
+        dqkv = torch.empty(qkv.shape, device=qkv.device, dtype=qkv.dtype)
+        grads = [dqkv.view(s, n, 3, h, d).select(2, i).transpose(1, 2)
+                 for i in range(3)]
+        heads = [t.view(s, n, h, d).transpose(1, 2)
+                 for t in (out, g.contiguous())]
+        _launch_backward(q4, k4, v4, *heads, lse.view(s, h, n), *grads,
+                         ctx.scale)
+        return dqkv, None
+
+
+def flash_attention_packed(q, k, v, heads: int, scale=None,
+                           with_lse: bool = False):
+    """Head-packed flash attention: q, k, v (..., N, H*D) -> (..., N, H*D)
+    in q's dtype, and with ``with_lse`` (no autograd) also the f32
+    (..., H, N) logsumexp. The kernels on a CUDA tensor, the plain
+    versions on a CPU one; differentiable (``FlashPackedFn``)."""
+    scale = _packed_scale(q, heads, scale)
+    if _needs_graph(q, k, v):
+        if with_lse:
+            raise NotImplementedError(
+                "flash attention: the lse is the backward's residual and "
+                "has no gradient; ask for it under torch.no_grad()")
+        return FlashPackedFn.apply(q, k, v, heads, scale)
+    out, lse = _packed_forward(q, k, v, heads, scale, with_lse)
+    return (out, lse) if with_lse else out
+
+
+def flash_attention(q, k, v, scale=None):
+    """Per-head flash attention over (..., N, D) -> (..., N, D). The
+    kernels on a CUDA tensor, the plain versions on a CPU one;
+    differentiable (``FlashFn``)."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if _needs_graph(q, k, v):
+        return FlashFn.apply(q, k, v, scale)
+    return _heads_forward(q, k, v, scale, False)[0]
+
+
+def flash_attention_qkvpacked(qkv, scale=None):
+    """Packed-qkv entry: qkv (..., N, 3, H, D) -> (..., N, H, D), the
+    per-head kernels reading q, k and v in place; differentiable
+    (``FlashQKVPackedFn``)."""
+    if qkv.shape[-3] != 3:
+        raise ValueError(f"expected (..., N, 3, H, D), got "
+                         f"{tuple(qkv.shape)}")
+    scale = qkv.shape[-1] ** -0.5 if scale is None else scale
+    if _needs_graph(qkv):
+        return FlashQKVPackedFn.apply(qkv, scale)
+    return _qkvpacked_forward(qkv, scale, False)[0]

@@ -16,6 +16,13 @@ On a CPU tensor each wrapper computes its plain PyTorch version instead; on
 a CUDA tensor it launches its kernel or raises. ``LAUNCHES`` counts kernel
 launches per pass.
 
+Under autograd (grad enabled and an input that requires grad)
+``fused_bottleneck`` runs ``FusedBottleneckFn``: the same forward, and a
+backward that recomputes the plain chain and differentiates it, as the JAX
+package's ``custom_vjp`` does (``_fb_bwd``, an XLA recompute, not a
+kernel). The backward launches no kernel. ``fused_pool`` and
+``fused_main`` alone have no backward and raise under autograd.
+
 Weight layouts are the JAX package's, as matrices: w1 (C, E), wd (k, k, E),
 w2 (E, Co), se_w1 (E, E/4), se_b1 (E/4,), se_w2 (E/4, E), se_b2 (E,).
 Activations are channels-last: x (B, T, H, W, C) -> (B, T', H', W', Co).
@@ -147,8 +154,21 @@ def _raise_on(err: int, what: str):
                            f"with CUDA error {err}")
 
 
+def _needs_graph(*ts) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
+def _no_graph(what, *ts):
+    if _needs_graph(*ts):
+        raise NotImplementedError(
+            f"fused bottleneck {what} pass: no backward of its own; "
+            "differentiate fused_bottleneck (FusedBottleneckFn) instead")
+
+
 def fused_pool(x, w1, wd, kernel_size: int, stride: int):
     """SE pass 1: f32 (B, E) per-sample sums of the depthwise output."""
+    _no_graph("pool", x, w1, wd)
     if x.device.type == "cpu":
         return pool_reference(x, w1, wd, kernel_size, stride)
     _check(x, w1, wd, kernel_size)
@@ -167,6 +187,7 @@ def fused_pool(x, w1, wd, kernel_size: int, stride: int):
 
 def fused_main(x, w1, wd, w2, scale, kernel_size: int, stride: int):
     """Pass 2: expand -> depthwise -> x scale (f32 (B, E)) -> project."""
+    _no_graph("main", x, w1, wd, w2, scale)
     if x.device.type == "cpu":
         return main_reference(x, w1, wd, w2, scale, kernel_size, stride)
     _check(x, w1, wd, kernel_size, w2=w2, scale=scale)
@@ -185,11 +206,8 @@ def fused_main(x, w1, wd, w2, scale, kernel_size: int, stride: int):
     return out
 
 
-def fused_bottleneck(x, w1, wd, w2, se_w1, se_b1, se_w2, se_b2,
-                     kernel_size: int, stride: int, use_se: bool):
-    """The whole chain: the kernels on a CUDA tensor (pool pass, SE MLP in
-    torch, main pass), the plain version on a CPU tensor. The SE arguments
-    are ignored (and may be None) when ``use_se`` is false."""
+def _fused_forward(x, w1, wd, w2, se_w1, se_b1, se_w2, se_b2,
+                   kernel_size, stride, use_se):
     if x.device.type == "cpu":
         return fused_bottleneck_reference(x, w1, wd, w2, se_w1, se_b1, se_w2,
                                           se_b2, kernel_size, stride, use_se)
@@ -203,3 +221,44 @@ def fused_bottleneck(x, w1, wd, w2, se_w1, se_b1, se_w2, se_b2,
         scale = torch.ones((b, w1.shape[-1]), device=x.device,
                            dtype=torch.float32)
     return fused_main(x, w1, wd, w2, scale, kernel_size, stride)
+
+
+class FusedBottleneckFn(torch.autograd.Function):
+    """The fused chain under autograd: the forward of ``fused_bottleneck``
+    (the kernels on the card), the backward a recompute through
+    ``fused_bottleneck_reference`` differentiated by autograd. The weights
+    are the outputs of ``Bottleneck3D.kernel_weights``, so their gradients
+    flow on through its transposes and casts to the f32 parameters."""
+
+    @staticmethod
+    def forward(ctx, x, w1, wd, w2, se_w1, se_b1, se_w2, se_b2,
+                kernel_size, stride, use_se):
+        ctx.save_for_backward(x, w1, wd, w2, se_w1, se_b1, se_w2, se_b2)
+        ctx.static = (kernel_size, stride, use_se)
+        return _fused_forward(x, w1, wd, w2, se_w1, se_b1, se_w2, se_b2,
+                              kernel_size, stride, use_se)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [None if t is None else
+                  t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors,
+                                     ctx.needs_input_grad)]
+        with torch.enable_grad():
+            out = fused_bottleneck_reference(*inputs, *ctx.static)
+        wrt = [t for t in inputs if t is not None and t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wrt, g, allow_unused=True))
+        return (*(next(grads) if t is not None and t.requires_grad
+                  else None for t in inputs), None, None, None)
+
+
+def fused_bottleneck(x, w1, wd, w2, se_w1, se_b1, se_w2, se_b2,
+                     kernel_size: int, stride: int, use_se: bool):
+    """The whole chain: the kernels on a CUDA tensor (pool pass, SE MLP in
+    torch, main pass), the plain version on a CPU tensor; under autograd
+    through ``FusedBottleneckFn``. The SE arguments are ignored (and may
+    be None) when ``use_se`` is false."""
+    args = (x, w1, wd, w2, se_w1, se_b1, se_w2, se_b2)
+    if _needs_graph(*args):
+        return FusedBottleneckFn.apply(*args, kernel_size, stride, use_se)
+    return _fused_forward(*args, kernel_size, stride, use_se)

@@ -4,9 +4,19 @@ Counterpart of ``picklebot_tpu/ops/linear.py``. ``Dense`` is the
 reference's 1x1x1 Conv3d on a pooled (B, C) feature: it stores the
 reference weight shape (O, I, 1, 1, 1) so state dicts load unchanged.
 ``Linear`` is the reference's nn.Linear, weight (O, I).
+
+Dropout in train mode draws its masks from an explicit ``torch.Generator``
+on the activation's device, the one of the innermost ``dropout_rng``
+block, as the JAX package draws from the ``rng`` that ``apply(train=True)``
+is given; a train-mode forward with dropout outside such a block raises.
+The bits differ from the JAX package's (Philox against threefry); the
+masks' shape, keep rate and inverted scaling are the same.
 """
 
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 import torch.nn.functional as F
@@ -69,33 +79,66 @@ class GlobalAvgPool(nn.Module):
         return x.float().mean(dim=tuple(range(1, x.dim() - 1))).to(x.dtype)
 
 
+_GENERATOR = contextvars.ContextVar("dropout_generator", default=None)
+
+
+@contextlib.contextmanager
+def dropout_rng(generator: torch.Generator):
+    """Train-mode dropout inside this block (in this thread or task)
+    draws from ``generator``."""
+    token = _GENERATOR.set(generator)
+    try:
+        yield generator
+    finally:
+        _GENERATOR.reset(token)
+
+
+def dropout_mask(shape, keep: float, device) -> torch.Tensor:
+    """A bool mask of ``shape``, each entry True with probability
+    ``keep``, from the current ``dropout_rng`` generator."""
+    g = _GENERATOR.get()
+    if g is None:
+        raise ValueError("train-mode dropout needs a generator: run the "
+                         "forward inside ops.linear.dropout_rng("
+                         "torch.Generator(device))")
+    device = torch.device(device)
+    if g.device.type != device.type or (
+            device.index or 0) != (g.device.index or 0):
+        raise ValueError(f"dropout generator on {g.device}, activations "
+                         f"on {device}")
+    return torch.rand(shape, generator=g, device=device) < keep
+
+
+def _drop(x, mask, keep):
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)
+
+
 class ChannelDropout(nn.Module):
-    """Dropout3d on channels-last activations: the identity in eval. Train
-    mode (per-sample channel masks) comes with the training slice."""
+    """Dropout3d on channels-last activations: in train mode each sample
+    loses whole channels, a (B, 1, ..., 1, C) mask, the rest scaled by
+    1/keep; the identity in eval."""
 
     def __init__(self, p: float = 0.5):
         super().__init__()
         self.p = p
 
     def forward(self, x):
-        if self.training and self.p > 0.0:
-            raise NotImplementedError(
-                "ChannelDropout in train mode comes with the training slice "
-                "of the port (ROADMAP.md, queue A, slice 2)")
-        return x
+        if not self.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
+        return _drop(x, dropout_mask(shape, keep, x.device), keep)
 
 
 class Dropout(nn.Module):
-    """Elementwise dropout: the identity in eval. Train mode (masks) comes
-    with the training slice."""
+    """Elementwise dropout, inverted scaling: the identity in eval."""
 
     def __init__(self, p: float = 0.5):
         super().__init__()
         self.p = p
 
     def forward(self, x):
-        if self.training and self.p > 0.0:
-            raise NotImplementedError(
-                "Dropout in train mode comes with the training slice of "
-                "the port (ROADMAP.md, queue A, slice 2)")
-        return x
+        if not self.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        return _drop(x, dropout_mask(x.shape, keep, x.device), keep)

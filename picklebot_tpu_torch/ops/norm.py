@@ -6,8 +6,12 @@ buffer names (weight, bias, running_mean, running_var,
 num_batches_tracked). ``affine=False`` (MobileViT's conv_*_bn BatchNorms,
 its attention's LayerNorm) has no weight or bias. BatchNorm's eval mode
 folds (mean, var, weight, bias) into one per-channel multiply-add in f32
-and applies it in the activation's dtype. Train-mode batch statistics
-belong to the training slice (ROADMAP.md, queue A, slice 2).
+and applies it in the activation's dtype. Train mode follows torch, as
+the JAX BatchNorm does: f32 batch statistics, the biased variance to
+normalize and the unbiased one into ``running_var``, momentum 0.1,
+``num_batches_tracked`` += 1; the buffers update without a graph, the
+normalization is differentiated through the batch statistics. The same
+fold then applies them.
 """
 
 from __future__ import annotations
@@ -46,14 +50,23 @@ class BatchNorm(nn.Module):
 
     def forward(self, x):
         if self.training:
-            raise NotImplementedError(
-                "BatchNorm train-mode statistics come with the training "
-                "slice of the port (ROADMAP.md, queue A, slice 2); call "
-                "model.eval() to serve")
-        a = torch.rsqrt(self.running_var.float() + self.eps)
+            xf = x.float()
+            dims = tuple(range(x.dim() - 1))
+            mean = xf.mean(dims)
+            var = xf.var(dims, unbiased=False)
+            n = x.numel() // x.shape[-1]
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.mul_(1 - m).add_(m * mean)
+                self.running_var.mul_(1 - m).add_(
+                    m * (var * (n / max(n - 1, 1))))
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean.float(), self.running_var.float()
+        a = torch.rsqrt(var + self.eps)
         if self.affine:
             a = a * self.weight.float()
-        b = -self.running_mean.float() * a
+        b = -mean * a
         if self.affine:
             b = b + self.bias.float()
         return x * a.to(x.dtype) + b.to(x.dtype)

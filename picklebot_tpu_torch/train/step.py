@@ -1,8 +1,16 @@
-"""Inference step: uint8 clips -> logits.
+"""Train, eval and inference steps: uint8 clips -> loss, metrics, logits.
 
-Counterpart of ``preprocess`` and ``make_predict_fn`` in
-``picklebot_tpu/train/step.py``. The train and eval steps come with the
-training slice (ROADMAP.md, queue A, slice 2).
+Counterpart of ``preprocess``, ``make_train_step`` (single device),
+``make_eval_step`` and ``make_predict_fn`` in
+``picklebot_tpu/train/step.py``. A train step takes a whole effective
+batch (A microbatches): per microbatch, preprocess -> train-mode forward
+(BatchNorm running statistics advance) -> loss -> backward, the gradients
+summed unscaled into the f32 ``.grad`` of the f32 parameters; then the
+optional global-norm clip and one optimizer update at the epoch's learning
+rate. Compute runs in the policy's dtype (bf16 for ``use_autocast``) with
+no GradScaler. Dropout masks come from one ``torch.Generator`` on the
+device, seeded per microbatch from (seed, position), as the JAX step folds
+the position into its key.
 """
 
 from __future__ import annotations
@@ -11,6 +19,10 @@ import numpy as np
 import torch
 
 from picklebot_tpu_torch.core.policy import DtypePolicy
+from picklebot_tpu_torch.ops.linear import dropout_rng
+from picklebot_tpu_torch.train.losses import (LOSSES, LOSSES_PER_SAMPLE,
+                                              prepare_labels, smoothed_bce,
+                                              smoothed_cross_entropy)
 
 
 def preprocess(features: torch.Tensor, compute_dtype, mean=None, std=None,
@@ -45,3 +57,101 @@ def make_predict_fn(model, policy: DtypePolicy = None, mean=None, std=None,
             return model(x).float().cpu().numpy()
 
     return predict
+
+
+def _micro_seed(seed: int, position: int) -> int:
+    return (seed * 1_000_003 + position) % 2 ** 63
+
+
+def make_train_step(model, optimizer, criterion: str, schedule,
+                    policy: DtypePolicy = None, mean=None, std=None,
+                    max_grad_norm=None, label_smoothing: float = 0.0,
+                    seed: int = 0, device="cuda"):
+    """step(epoch, features, labels, position=0) -> metrics, with features
+    (A, B, T, H, W, C) uint8 and labels (A, B) (numpy or tensors) and
+    ``position`` the index of the step's first microbatch in the run (it
+    keys the dropout masks). Metrics: per-microbatch ``loss`` and
+    ``correct`` (A,) tensors, ``samples`` A*B, ``lr``, and ``grad_norm``
+    when clipping (torch ``clip_grad_norm_``: one global norm, grads
+    scaled by max/(norm + 1e-6) when it exceeds max). The summed
+    gradients stay in ``.grad`` after the step."""
+    policy = policy or DtypePolicy.bf16()
+    device = torch.device(device)
+    loss_fn, acc_fn = LOSSES[criterion]
+    if label_smoothing > 0.0:
+        loss_fn = (smoothed_cross_entropy(label_smoothing) if criterion == "CE"
+                   else smoothed_bce(label_smoothing))
+    params = [p for p in model.parameters() if p.requires_grad]
+    generator = torch.Generator(device=device)
+
+    def step(epoch, features, labels, position: int = 0):
+        lr = schedule(epoch)
+        feats, lbls = torch.as_tensor(features), torch.as_tensor(labels)
+        model.train()
+        for p in params:
+            p.grad = None
+        losses, corrects = [], []
+        with policy.precision():
+            for i in range(feats.shape[0]):
+                x = preprocess(feats[i].to(device), policy.compute_dtype,
+                               mean, std)
+                lbl = prepare_labels(criterion, lbls[i].to(device))
+                generator.manual_seed(_micro_seed(seed, position + i))
+                with dropout_rng(generator):
+                    logits = model(x)
+                loss = loss_fn(logits, lbl)
+                loss.backward()
+                losses.append(loss.detach())
+                corrects.append(acc_fn(logits.detach(), lbl))
+            metrics = {"loss": torch.stack(losses),
+                       "correct": torch.stack(corrects),
+                       "samples": float(feats.shape[0] * feats.shape[1]),
+                       "lr": lr}
+            if max_grad_norm is not None:
+                norm = torch.sqrt(sum(p.grad.float().pow(2).sum()
+                                      for p in params if p.grad is not None))
+                scale = torch.clamp(max_grad_norm / (norm + 1e-6), max=1.0)
+                for p in params:
+                    if p.grad is not None:
+                        p.grad.mul_(scale)
+                metrics["grad_norm"] = norm
+            optimizer.step(lr)
+        return metrics
+
+    return step
+
+
+def make_eval_step(model, criterion: str, policy: DtypePolicy = None,
+                   mean=None, std=None, device="cuda"):
+    """eval_step(features, labels, mask) -> {'loss' (masked mean),
+    'loss_sum', 'correct', 'samples', 'confusion'}: eval mode (BatchNorm
+    running statistics), ``mask`` (B,) 1.0 for real samples and 0.0 for
+    the padded tail. The confusion matrix has rows = true class, columns =
+    predicted (2 x 2 for BCE)."""
+    policy = policy or DtypePolicy.bf16()
+    device = torch.device(device)
+    loss_fn, correct_fn = LOSSES_PER_SAMPLE[criterion]
+
+    def eval_step(features, labels, mask):
+        model.eval()
+        with torch.inference_mode(), policy.precision():
+            x = preprocess(torch.as_tensor(features).to(device),
+                           policy.compute_dtype, mean, std)
+            logits = model(x)
+            lbl = prepare_labels(criterion, torch.as_tensor(labels).to(device))
+            m = torch.as_tensor(mask, dtype=torch.float32).to(device)
+            loss_sum = (loss_fn(logits, lbl) * m).sum()
+            correct = (correct_fn(logits, lbl) * m).sum()
+            n = m.sum()
+            if criterion == "BCE":
+                pred = (logits.reshape(-1) > 0).long()
+                true, ncls = lbl.reshape(-1).long(), 2
+            else:
+                pred, true, ncls = logits.argmax(-1), lbl, logits.shape[-1]
+            confusion = torch.zeros((ncls, ncls), device=device).index_put_(
+                (true, pred), m, accumulate=True)
+            return {"loss": (loss_sum / n.clamp(min=1.0)).item(),
+                    "loss_sum": loss_sum.item(), "correct": correct.item(),
+                    "samples": n.item(), "confusion": confusion.cpu().numpy()}
+
+    return eval_step

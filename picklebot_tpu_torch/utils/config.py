@@ -246,6 +246,13 @@ class Config:
     def grad_accum_steps(self) -> int:
         return self.effective_batch_size // self.batch_size
 
+    def run_name(self) -> str:
+        """The reference's run name: model and the torch repr of the
+        criterion, e.g. ``MobileViT_CrossEntropyLoss()``."""
+        crit = {"CE": "CrossEntropyLoss()",
+                "BCE": "BCEWithLogitsLoss()"}[self.criterion]
+        return f"{self.model_name}_{crit}"
+
 
 def replicated_equivalent(config: Config) -> Config:
     """The same model with every sharded-execution axis (TP/SP/PP/EP)

@@ -19,6 +19,7 @@ from picklebot_tpu.ops import attention as jax_attention
 from picklebot_tpu.ops.norm import LayerNorm as JaxLayerNorm
 from picklebot_tpu_torch.ops import attention as port_attention
 from picklebot_tpu_torch.ops import flash_attention as fa
+from picklebot_tpu_torch.ops.linear import dropout_rng
 from picklebot_tpu_torch.ops.norm import LayerNorm
 
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -94,11 +95,23 @@ def test_mha_auto_on_both_sides_of_the_threshold(rng, monkeypatch):
                                    err_msg=f"n={n}", **TOL)
 
 
-def test_mha_refuses_what_is_not_ported():
+def test_mha_refuses_what_is_not_ported(monkeypatch):
+    """Sequence parallelism names ROADMAP.md and an unknown backend is an
+    error. Train-mode attention dropout runs: on the plain path whatever
+    the backend (the kernels have no dropout path), with a graph, and
+    only with a dropout generator."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_attention.MultiHeadAttention(32, sequence_axis="seq")
     with pytest.raises(ValueError, match="backend"):
         port_attention.MultiHeadAttention(32, backend="flash")
-    m = port_attention.MultiHeadAttention(32, dropout=0.1).train()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m(torch.zeros(1, 2, 8, 32))
+    m = port_attention.MultiHeadAttention(32, dropout=0.1, backend="packed")
+    for mod in m.modules():
+        if hasattr(mod, "reset_parameters"):
+            mod.reset_parameters(torch.Generator().manual_seed(0))
+    x = torch.randn(1, 2, 8, 32)
+    with pytest.raises(ValueError, match="dropout_rng"):
+        m.train()(x)
+    monkeypatch.setattr(port_attention, "flash_attention_packed", None)
+    with dropout_rng(torch.Generator().manual_seed(0)):
+        out = m(x)
+    assert out.grad_fn is not None and torch.isfinite(out).all()

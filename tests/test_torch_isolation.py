@@ -42,10 +42,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 "models.mobilenet3d", "models.registry", "utils.config",
                 "data.dataset", "train.step", "utils.devices",
                 "core.policy", "ops.attention", "ops.flash_attention",
-                "models.mobilevit"):
+                "models.mobilevit", "cli", "train.loop", "train.optim",
+                "train.losses", "train.metrics", "data.loader"):
         assert f"picklebot_tpu_torch.{mod}" in res["modules"]
     assert res["launches"] == {"pool": 0, "main": 0}
-    assert res["flash_launches"] == {"packed": 0, "heads": 0}
+    assert res["flash_launches"] == {"packed": 0, "heads": 0, "dq": 0,
+                                     "dkv": 0}
 
 
 def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):

@@ -21,7 +21,10 @@ from picklebot_tpu.train.key_maps import export_rank_for, key_map_for
 from picklebot_tpu_torch.convert import state_dict_from_jax
 from picklebot_tpu_torch.core.policy import DtypePolicy as TorchPolicy
 from picklebot_tpu_torch.models.mobilevit import MOBILEVIT_CONFIGS, MobileViT
+from picklebot_tpu_torch.models.registry import initialize_model
 from picklebot_tpu_torch.ops import flash_attention as fa
+from picklebot_tpu_torch.ops.norm import BatchNorm
+from picklebot_tpu_torch.utils.config import Config
 from test_torch_mobilenet3d import _perturb_batchnorm
 
 NAME = "MobileViT"
@@ -106,6 +109,16 @@ def test_eval_logits_match_jax_bf16(rng):
 
 
 def test_train_mode_is_refused():
-    m = MobileViT(num_classes=13, **XXS).train()
+    """Train mode runs: the forward advances every BatchNorm's statistics
+    and keeps a graph that reaches every parameter. What train mode still
+    refuses, sequence parallelism, names ROADMAP.md."""
+    m = MobileViT(num_classes=13, attention_backend="packed", **XXS).train()
+    bns = [b for b in m.modules() if isinstance(b, BatchNorm)]
+    out = m(torch.rand(1, 4, 32, 32, 3))
+    assert type(out.grad_fn).__name__ != "NoneType"
+    assert all(int(b.num_batches_tracked) == 1 for b in bns)
+    out.float().pow(2).sum().backward()
+    assert all(p.grad is not None for p in m.parameters())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m(torch.zeros(1, 4, 32, 32, 3))
+        initialize_model(Config(model_name="MobileViT", sequence_parallel=2,
+                                **XXS).validate())
