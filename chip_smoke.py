@@ -5,50 +5,58 @@
 
 Phases, in order (each prints JSON lines; any failure exits non-zero):
   1. device   the card's name and power limit (nvidia-smi), torch and CUDA
-  2. build    nvcc builds every kernel from picklebot_tpu_torch/csrc/, one
-              process per source, all started together; meanwhile the
-              profiler's one-time start-up runs on a trivial op
+  2. build    nvcc builds every kernel from picklebot_tpu_torch/csrc/
+              (fused_bottleneck, flash_attention, folded_conv), one process
+              per source, all started together; meanwhile the profiler's
+              one-time start-up runs on a trivial op
   3. kernels  each kernel against its plain PyTorch version on the card:
-              the fused bottleneck at the 15 MobileNetLarge3D and the 7
-              MobileViT-s bottleneck geometries of a bs-8, 32x224x224 clip
-              batch (bf16), plus one f32 case with TF32 off; the flash
-              attention kernel, packed with and without lse at
-              MobileViT-s's stage-1 shape, per head at its three stages'
-              shapes and qkv-packed at stage 1 (bf16), f32 cases with
-              TF32 off (packed with lse, per head and qkv-packed at a
-              ragged N), and head dims 32 and 64; kernel, plain and
-              library times by CUDA events, and bounds
+              the fused bottleneck at the 15 MobileNetLarge3D, the 7
+              MobileViT-s and the 11 MobileNetSmall3D bottleneck geometries
+              of a bs-8, 32x224x224 clip batch (bf16), plus one f32 case
+              with TF32 off; the flash attention kernel, packed with and
+              without lse at MobileViT-s's stage-1 shape, per head at its
+              three stages' shapes and qkv-packed at stage 1 (bf16), f32
+              cases with TF32 off, and head dims 32 and 64; the flash
+              backward kernels (dQ, dK/dV) against flash_backward_reference
+              at the same shapes; the conv kernel, forward and dx, at
+              MobileViT-s's six conv1/conv4 geometries (bf16), at
+              MobileViT-xxs's widths and the per-axis kernel sizes (1,3,3),
+              (3,3,1), (1,5,3) (bf16 and f32), and in f32 with TF32 off at
+              stage 2; kernel, plain and library times by CUDA events, and
+              bounds
   4. serve    picklebot_tpu_torch.serve.main on 16 synthetic clips at full
-              width from a seeded .pth, for MobileNetLarge3D and for
-              MobileViT-s ('auto' attention): checks the predictions, the
-              exact kernel launches of each run (counts set to 0 just
-              before it, read just after), and one batch's logits against
-              the plain path on the card; then the predict throughput at
-              bs 8, and a torch.profiler trace of one forward (device
-              time by kernel, idle share; a trace without device events
-              fails the run)
+              width from a seeded .pth, for MobileNetLarge3D, MobileViT-s
+              ('auto' attention), MobileNetSmall3D and MoViNet-A2: checks
+              the predictions, the exact kernel launches of each run
+              (every count set to 0 just before it, read just after; none
+              for MoViNet-A2, which runs no hand-written kernel), and one
+              batch's logits against the plain path on the card; then the
+              predict throughput at bs 8, the forward's device time (for
+              MobileViT-s also with conv1/conv4 on the library conv, as
+              before the conv kernel), and a torch.profiler trace of one
+              forward (device time by kernel, idle share; a trace without
+              device events fails the run)
   5. pallas   one MobileViT-s forward each with attention_backend
               'pallas' and 'pallas_packed': 9 per-head flash launches
               each, logits against the plain path
   6. train    python -m picklebot_tpu_torch.cli on synthetic configs
-              derived from configs/mobilevit_s.json and
-              configs/mobilenet_large_50k.json (full width; each cut on a
-              JSON line: 32x224x224 synthetic clips, batch 8, 2
-              microbatches, 3 steps, 48 clips): finite losses, the exact
-              kernel launches of each run (the flash backward kernels
+              derived from configs/mobilevit_s.json,
+              mobilenet_large_50k.json, mobilenet_small_50k.json and
+              movinet_a2_50k.json (full width; each cut on a JSON line:
+              32x224x224 synthetic clips, batch 8, 2 microbatches, 3
+              steps, 48 clips): finite losses, the exact kernel launches
+              of each run (the flash backward and the conv dx kernels
               included), and the written .pth serves; one MobileViT-s
               train step each with 'pallas' and 'pallas_packed'; every
               parameter's gradient against the plain path (kernels=False)
-              on one bs-8 batch; train step time, samples/s, forward and
-              backward split, peak memory, and a torch.profiler trace of
-              one train step per model
+              on one bs-8 batch of MobileViT-s and MobileNetLarge3D; train
+              step time, samples/s, forward and backward split, peak
+              memory, and a torch.profiler trace of one train step per
+              model (MobileViT-s also with conv1/conv4 on the library conv)
   7. summary  {"kernels": [...]}, the card line, and last
               {"ok": true, "device": ...}
-The flash backward kernels (dQ, dK/dV) are held against
-flash_backward_reference in phase 3: packed at stage 1, per head at every
-stage, qkv-packed at stage 1 (bf16), f32 with TF32 off, head dims 32 and
-64. Per-shape numbers also go to chiprun_out/chip_smoke.json. Without
-CUDA it exits with code 2 and prints no result. Imports nothing of JAX.
+Per-shape numbers also go to chiprun_out/chip_smoke.json. Without CUDA it
+exits with code 2 and prints no result. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -97,10 +105,39 @@ VIT_GEOMETRIES = [
     ((8, 8, 28, 28, 96), 3, 2, False, 512, 128),
     ((8, 5, 14, 14, 128), 3, 2, False, 512, 160),
 ]
+# MobileNetSmall3D's 11 bottlenecks at the same input (E = 16, 72, 88 and
+# 120 are no multiples of the kernels' 32-channel chunk)
+SMALL_GEOMETRIES = [
+    ((8, 16, 112, 112, 16), 3, 2, True, 16, 16),
+    ((8, 9, 56, 56, 16), 3, 2, False, 72, 24),
+    ((8, 6, 28, 28, 24), 3, 1, False, 88, 24),
+    ((8, 8, 28, 28, 24), 5, 2, True, 96, 40),
+    ((8, 6, 14, 14, 40), 5, 1, True, 240, 40),
+    ((8, 10, 14, 14, 40), 5, 1, True, 240, 40),
+    ((8, 14, 14, 14, 40), 5, 1, True, 120, 48),
+    ((8, 18, 14, 14, 48), 5, 1, True, 144, 48),
+    ((8, 22, 14, 14, 48), 5, 2, True, 288, 96),
+    ((8, 13, 7, 7, 96), 5, 1, True, 576, 96),
+    ((8, 17, 7, 7, 96), 5, 1, True, 576, 96),
+]
 # MobileViT-s attention at bs 8: 64 sequences (8 clips x 8 patch
 # positions) of N tokens, 8 heads of 16, per stage: (N, layers)
 VIT_ATTENTION = [(784, 2), (147, 4), (32, 3)]
 VIT_SEQS, VIT_HEADS, VIT_DHEAD = 64, 8, 16
+# MobileViT-s's dense stride-1 3x3x3 convs at the same input, per stage:
+# the MobileViTBlock's activation (B, T, H, W) and channel width C; conv1
+# is C -> C on it, conv4 2C -> C. The serve phase checks that the model
+# gives them these shapes.
+VIT_CONV_STAGES = [((8, 8, 28, 28), 96), ((8, 5, 14, 14), 128),
+                   ((8, 4, 7, 7), 160)]
+# (x shape, Co, kernel): MobileViT-xxs's widths at bs 8 (48, 64, 80; conv4
+# of its middle stage), then the per-axis kernel sizes of the JAX
+# package's test of this kernel
+CONV_EXTRA_CASES = [
+    ((8, 8, 28, 28, 48), 48, (3, 3, 3)), ((8, 5, 14, 14, 128), 64, (3, 3, 3)),
+    ((8, 4, 7, 7, 80), 80, (3, 3, 3)), ((2, 3, 4, 4, 64), 32, (1, 3, 3)),
+    ((1, 5, 4, 3, 32), 32, (3, 3, 1)), ((1, 3, 5, 4, 32), 32, (1, 5, 3)),
+    ((1, 4, 6, 5, 32), 48, (3, 3, 3))]
 # bf16: the plain path rounds the expanded and depthwise tensors to bf16
 # (2^-9 relative each) where the kernel keeps them f32, so outputs differ
 # by a few bf16 ulps of the output's range; 3% of max|plain| bounds that.
@@ -113,6 +150,9 @@ BF16_REL_TOL = 3e-2
 # output by a few 2^-9 (rms ratio ~0.3%); a stride or layout fault moves
 # every output by about its own size. max|ref| comes from a few peaked
 # rows, ~25x the rms output at N=784, so the max bound alone is loose.
+# The conv kernel in bf16 is held to both bounds as well: it and its plain
+# version (cuDNN) accumulate in f32 and round once, so they differ by one
+# bf16 ulp of a few outputs (measured rms ratio ~0.02%).
 BF16_RMS_TOL = 1e-2
 # f32 with TF32 off: the same f32 chain summed in another order.
 F32_REL_TOL = 1e-4
@@ -624,13 +664,148 @@ def flash_bwd_rows(reps):
     return rows
 
 
+def conv_bound(shape, co, kernel, elem):
+    """Least time for the stride-1 same-padded dense conv: x and w read
+    and the output written once; 2*Ci*Co FLOPs per output position and
+    tap that stays inside the clip (a tap in the zero padding needs no
+    arithmetic, so the count is this geometry's, not 27 per position)."""
+    b, t, h, w, ci = shape
+
+    def inside(n, k):
+        return sum(max(0, n - abs(d - (k - 1) // 2)) for d in range(k))
+    taps_inside = b * inside(t, kernel[0]) * inside(h, kernel[1]) * inside(
+        w, kernel[2])
+    m = b * t * h * w
+    nbytes = (m * (ci + co) + kernel[0] * kernel[1] * kernel[2] * ci * co
+              ) * elem
+    return roofline(nbytes, 2 * taps_inside * ci * co,
+                    "bfloat16" if elem == 2 else "float32")
+
+
+def conv_case(shape, co, kernel, dtype, seed):
+    """Seeded x, w (Kt, Kh, Kw, Ci, Co) and output gradient on the card, w
+    scaled U(-1/sqrt(fan_in), 1/sqrt(fan_in)); the flipped weight and the
+    library's weight layout for the yardstick calls."""
+    import torch
+    g_ = torch.Generator(device="cuda").manual_seed(seed)
+    ci = shape[-1]
+    bound_ = (ci * kernel[0] * kernel[1] * kernel[2]) ** -0.5
+    x = torch.randn(*shape, generator=g_, device="cuda").to(dtype)
+    w = ((torch.rand(*kernel, ci, co, generator=g_, device="cuda") * 2 - 1)
+         * bound_).to(dtype)
+    g = torch.randn(*shape[:-1], co, generator=g_, device="cuda").to(dtype)
+    pads = tuple(((k - 1) // 2,) * 2 for k in kernel)
+    w_flip = w.flip(0, 1, 2).transpose(-1, -2).contiguous()
+    w_lib = w.permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
+    return x, w, g, pads, w_flip, w_lib
+
+
+def conv_rows(reps):
+    """The conv kernel against its plain version on the card, forward and
+    dx: MobileViT-s's six conv1/conv4 geometries (bf16, with kernel, plain
+    and library times and bounds), MobileViT-xxs's widths and the JAX
+    test's per-axis kernel sizes (bf16 and f32), and one f32 case at
+    stage 2 with TF32 off. Plain: ``folded_conv_reference`` (forward; for
+    dx on the output gradient with the flipped weight). Library, timed as
+    a yardstick only: ``F.conv3d`` on the channels_last_3d view with the
+    weight in cuDNN's layout, and ``torch.nn.grad.conv3d_input`` for dx
+    (its result is also held against the kernel's)."""
+    import torch
+    import torch.nn.functional as F
+    from picklebot_tpu_torch.core.policy import DtypePolicy
+    from picklebot_tpu_torch.ops import folded_conv as fc
+
+    def held(name, shape, co, kernel, dtype, seed):
+        x, w, g, pads, w_flip, w_lib = conv_case(shape, co, kernel, dtype,
+                                                 seed)
+        assert fc.folded_conv_s1_eligible(x.shape, w.shape, (1, 1, 1), pads)
+        xr = x.detach().requires_grad_()
+        out = fc.folded_conv_s1(xr, w, pads)
+        dx, = torch.autograd.grad(out, xr, g)
+        want = fc.folded_conv_reference(x, w, pads)
+        want_dx = fc.folded_conv_reference(g, w_flip, pads)
+        lib_dx = torch.nn.grad.conv3d_input(
+            x.permute(0, 4, 1, 2, 3).shape, w_lib, g.permute(0, 4, 1, 2, 3),
+            padding=tuple(p[0] for p in pads)).permute(0, 2, 3, 4, 1)
+        torch.cuda.synchronize()
+        if out.shape != want.shape or dx.shape != x.shape:
+            raise AssertionError(f"{name}: shapes {tuple(out.shape)}, "
+                                 f"{tuple(dx.shape)}")
+        if dtype == torch.bfloat16:
+            errs = {"fwd": check_bf16_flash(f"{name} fwd", out, want),
+                    "dx": check_bf16_flash(f"{name} dx", dx, want_dx),
+                    "dx_vs_library": check_bf16_flash(f"{name} dx (library)",
+                                                     dx, lib_dx)}
+        else:
+            errs = {"fwd": dict(err=check_close(f"{name} fwd", out, want,
+                                                F32_REL_TOL)[0]),
+                    "dx": dict(err=check_close(f"{name} dx", dx, want_dx,
+                                               F32_REL_TOL)[0]),
+                    "dx_vs_library": dict(err=check_close(
+                        f"{name} dx (library)", dx, lib_dx, F32_REL_TOL)[0])}
+        return errs, (x, w, g, pads, w_flip, w_lib)
+
+    rows = []
+    for stage, ((b, t, h, w_), c) in enumerate(VIT_CONV_STAGES, 1):
+        for conv, ci in (("conv1", c), ("conv4", 2 * c)):
+            shape, kernel = (b, t, h, w_, ci), (3, 3, 3)
+            name = f"conv stage {stage} {conv} bf16"
+            errs, (x, w, g, pads, w_flip, w_lib) = held(
+                name, shape, c, kernel, torch.bfloat16, 700 + 10 * stage + ci)
+            xc, gc = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
+            row = {"stage": stage, "conv": conv, "x": list(shape), "Co": c,
+                   "k": list(kernel), "dtype": "bfloat16", **errs,
+                   "fwd_bound": conv_bound(shape, c, kernel, 2),
+                   "dx_bound": conv_bound(shape[:-1] + (c,), ci, kernel, 2),
+                   "ms_fwd": time_ms(lambda: fc._conv(x, w, pads, "fwd"),
+                                     reps),
+                   "ms_dx": time_ms(lambda: fc._conv(g, w_flip, pads, "dx"),
+                                    reps),
+                   "plain_ms_fwd": time_ms(
+                       lambda: fc.folded_conv_reference(x, w, pads), reps),
+                   "plain_ms_dx": time_ms(
+                       lambda: fc.folded_conv_reference(g, w_flip, pads),
+                       reps),
+                   "library_ms_fwd": time_ms(
+                       lambda: F.conv3d(xc, w_lib, padding=1), reps),
+                   "library_ms_dx": time_ms(
+                       lambda: torch.nn.grad.conv3d_input(
+                           xc.shape, w_lib, gc, padding=1), reps)}
+            emit({"phase": "kernels", "kernel": "folded_conv", **row})
+            rows.append(row)
+            del x, w, g, w_flip, w_lib, xc, gc
+    extra = {}
+    for i, (shape, co, kernel) in enumerate(CONV_EXTRA_CASES):
+        key = f"{list(shape)}->{co} k{list(kernel)}"
+        extra[key] = {"bf16": held(f"conv {key} bf16", shape, co, kernel,
+                                   torch.bfloat16, 800 + i)[0]}
+        with DtypePolicy.f32().precision():
+            extra[key]["f32"] = held(f"conv {key} f32", shape, co, kernel,
+                                     torch.float32, 850 + i)[0]
+    with DtypePolicy.f32().precision():
+        (b, t, h, w_), c = VIT_CONV_STAGES[1]
+        f32 = {conv: held(f"conv stage 2 {conv} f32", (b, t, h, w_, ci), c,
+                          (3, 3, 3), torch.float32, 900 + ci)[0]
+               for conv, ci in (("conv1", c), ("conv4", 2 * c))}
+    emit({"phase": "kernels", "kernel": "folded_conv", "f32_stage_2": f32,
+          "rel_tol_f32": F32_REL_TOL, "bf16_rel_tol": BF16_REL_TOL,
+          "bf16_rms_tol": BF16_RMS_TOL, "other_widths_and_kernels": extra})
+    return rows
+
+
 def phase_kernels():
-    rows, per = fused_rows("MobileNetLarge3D", GEOMETRIES, 0, reps=5)
-    vit_rows, vit_per = fused_rows("MobileViT-s", VIT_GEOMETRIES, 50,
-                                   reps=5)
+    rows, fused_per = [], {}
+    for model, geometries, seed0 in (
+            ("MobileNetLarge3D", GEOMETRIES, 0),
+            ("MobileViT-s", VIT_GEOMETRIES, 50),
+            ("MobileNetSmall3D", SMALL_GEOMETRIES, 70)):
+        model_rows, fused_per[model] = fused_rows(model, geometries, seed0,
+                                                  reps=5)
+        rows += model_rows
     fused_f32_case()
-    return (rows + vit_rows, per, vit_per, flash_rows(reps=5),
-            flash_bwd_rows(reps=5))
+    return (rows, fused_per, flash_rows(reps=5), flash_bwd_rows(reps=5),
+            conv_rows(reps=5))
 
 
 def calibrate_batchnorm(model, x):
@@ -664,6 +839,35 @@ def clip_batch():
                      synthetic_shape=(32, 224, 224), synthetic_len=16)
     feats, _ = pad_collate([ds[i][0] for i in range(8)], [0] * 8, 16, 128)
     return feats, preprocess(torch.from_numpy(feats).cuda(), torch.bfloat16)
+
+
+def all_counters():
+    """The launch counts of every kernel module, by module."""
+    from picklebot_tpu_torch.ops import flash_attention as fa
+    from picklebot_tpu_torch.ops import folded_conv as fc
+    from picklebot_tpu_torch.ops import fused_bottleneck as fb
+    return {"fused": fb.LAUNCHES, "flash": fa.LAUNCHES, "conv": fc.LAUNCHES}
+
+
+def launches_wanted(**by_module):
+    """Every kernel's wanted count: those named, and 0 for every other."""
+    return {name: {k: by_module.get(name, {}).get(k, 0) for k in c}
+            for name, c in all_counters().items()}
+
+
+@contextlib.contextmanager
+def conv_on_library():
+    """Within the block every ``Conv3d`` keeps to ``F.conv3d``: MobileViT's
+    conv1/conv4 as they ran before the conv kernel was wired in, the
+    other kernels still on. For before-and-after timings inside one run;
+    the port has no such switch."""
+    from picklebot_tpu_torch.ops.conv import Conv3d
+    saved = Conv3d.takes_folded_kernel
+    Conv3d.takes_folded_kernel = lambda self, x: False
+    try:
+        yield
+    finally:
+        Conv3d.takes_folded_kernel = saved
 
 
 def zero_counters(counters):
@@ -710,6 +914,21 @@ def serve_run(cfg, model, counters):
     return launches, serve_s, len(preds), lines[-1]
 
 
+def plain_logits(name, model, x):
+    """f32 logits of the plain path (``kernels=False``) on the card, which
+    must launch no hand-written kernel."""
+    import torch
+    counters = all_counters()
+    zero_counters(counters)
+    with torch.inference_mode():
+        ref = model(x, kernels=False).float()
+    torch.cuda.synchronize()
+    if read_counters(counters) != launches_wanted():
+        raise AssertionError(f"{name} plain path (kernels=False) launched "
+                             f"{read_counters(counters)}")
+    return ref
+
+
 def logits_against_plain(name, got, ref):
     """Kernel-path logits against the plain path's, both on the card:
     max abs err within 5% of max|logit|, argmax equal wherever the plain
@@ -749,44 +968,107 @@ def throughput(model, feats, x):
     with torch.inference_mode():
         fwd_ms = time_ms(lambda: model(x), reps=reps)
         plain_ms = time_ms(lambda: model(x, kernels=False), reps=reps)
+        with conv_on_library():
+            conv_lib_ms = time_ms(lambda: model(x), reps=reps)
+        fwd_ms2 = time_ms(lambda: model(x), reps=reps)
     return {"batch": 8, "clip": [32, 224, 224],
             "predict_clips_per_s": 8 * reps / dt, "forward_ms": fwd_ms,
-            "forward_plain_ms": plain_ms}
+            "forward_plain_ms": plain_ms,
+            "forward_ms_conv_on_library": conv_lib_ms,
+            "forward_ms_again": fwd_ms2}
 
 
-def phase_serve_large3d(gpu_line, feats, x):
+def serve_config(model_name, **extra):
+    return {"model_name": model_name, "num_classes": 13,
+            "use_autocast": True, "data_backend": "synthetic",
+            "synthetic_shape": [32, 224, 224], "t_bucket": 16,
+            "max_frames": 128, "synthetic_len": 16, **extra}
+
+
+def phase_serve_mobilenet(name, make_model, geometries, gpu_line, feats, x):
+    """MobileNetLarge3D or MobileNetSmall3D: every bottleneck on the fused
+    kernels (the pool pass in the SE blocks), no other kernel."""
     import torch
-    from picklebot_tpu_torch.models.mobilenet3d import MobileNetLarge3D
-    from picklebot_tpu_torch.ops import fused_bottleneck as fb
 
-    cfg = {"model_name": "MobileNetLarge3D", "num_classes": 13,
-           "use_autocast": True, "data_backend": "synthetic",
-           "synthetic_shape": [32, 224, 224], "t_bucket": 16,
-           "max_frames": 128, "synthetic_len": 16}
-    model = MobileNetLarge3D(13, seed=0).cuda().eval()
+    model = make_model().cuda().eval()
     calibrate_batchnorm(model, x)
+    shapes = bottleneck_inputs(model, x)
+    if shapes != [g[0] for g in geometries]:
+        raise AssertionError(f"{name} bottleneck inputs {shapes}, not the "
+                             "geometries the kernels were held at")
     n_se = sum(b.use_se for b in model.bottlenecks())
     n_blocks = len(list(model.bottlenecks()))
     launches, serve_s, n_preds, evaluated = serve_run(
-        cfg, model, {"fused": fb.LAUNCHES})
-    launches = launches["fused"]
-    want = {"pool": 2 * n_se, "main": 2 * n_blocks}
+        serve_config(name), model, all_counters())
+    want = launches_wanted(fused={"pool": 2 * n_se, "main": 2 * n_blocks})
     if launches != want:
-        raise AssertionError(f"serve: launches {launches}, want {want}")
-    emit({"phase": "serve", "model": "MobileNetLarge3D",
-          "predictions": n_preds, "evaluated": evaluated,
-          "launches": launches, "serve_wall_s": serve_s})
+        raise AssertionError(f"serve {name}: launches {launches}, want "
+                             f"{want}")
+    launches = launches["fused"]
+    emit({"phase": "serve", "model": name, "predictions": n_preds,
+          "evaluated": evaluated, "launches": launches,
+          "serve_wall_s": serve_s})
 
     with torch.inference_mode():
-        check = logits_against_plain("MobileNetLarge3D", model(x).float(),
-                                     model(x, kernels=False).float())
-    emit({"phase": "serve", "model": "MobileNetLarge3D", **check})
-    result = {"phase": "serve", "model": "MobileNetLarge3D",
+        check = logits_against_plain(name, model(x).float(),
+                                     plain_logits(name, model, x))
+    emit({"phase": "serve", "model": name, **check})
+    result = {"phase": "serve", "model": name,
               **throughput(model, feats, x), "card": gpu_line,
               "launches": launches}
     emit(result)
-    result["profile"] = phase_profile("MobileNetLarge3D", model, x)
+    result["profile"] = phase_profile(name, model, x)
     return result
+
+
+def phase_serve_movinet(gpu_line, feats, x):
+    """MoViNet-A2 (offline): matmuls and cuDNN depthwise convs only, so
+    the run must launch no hand-written kernel; its logits are held to be
+    finite and of the right shape, its predictions checked by
+    ``serve_run``."""
+    import torch
+
+    model = movinet_a2().cuda().eval()
+    calibrate_batchnorm(model, x)
+    launches, serve_s, n_preds, evaluated = serve_run(
+        serve_config("MoViNetA2"), model, all_counters())
+    if launches != launches_wanted():
+        raise AssertionError(f"serve MoViNetA2: launches {launches}, want "
+                             "none")
+    with torch.inference_mode():
+        logits = model(x).float()
+    if tuple(logits.shape) != (8, 13) or not torch.isfinite(logits).all():
+        raise AssertionError(f"MoViNetA2 logits: shape {tuple(logits.shape)}"
+                             ", or not finite")
+    emit({"phase": "serve", "model": "MoViNetA2", "predictions": n_preds,
+          "evaluated": evaluated, "launches": launches,
+          "logits_max_abs": logits.abs().max().item(),
+          "serve_wall_s": serve_s})
+    result = {"phase": "serve", "model": "MoViNetA2",
+              **throughput(model, feats, x), "card": gpu_line,
+              "launches": launches}
+    emit(result)
+    result["profile"] = phase_profile("MoViNetA2", model, x)
+    return result
+
+
+def conv_kernel_inputs(model, x):
+    """(input shape, Co) of every conv that takes the conv kernel, in one
+    plain forward."""
+    import torch
+    from picklebot_tpu_torch.ops.conv import Conv3d
+    seen = []
+
+    def hook(mod, args):
+        if mod.takes_folded_kernel(args[0]):
+            seen.append((tuple(args[0].shape), mod.out_channels))
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, Conv3d)]
+    with torch.inference_mode():
+        model(x, kernels=False)
+    for hnd in handles:
+        hnd.remove()
+    return seen
 
 
 def bottleneck_inputs(model, x):
@@ -808,25 +1090,26 @@ def phase_serve_mobilevit(gpu_line, feats, x):
     import torch
     from picklebot_tpu_torch.models.mobilevit import (MOBILEVIT_CONFIGS,
                                                       MobileViT)
-    from picklebot_tpu_torch.ops import flash_attention as fa
-    from picklebot_tpu_torch.ops import fused_bottleneck as fb
-
     widths = MOBILEVIT_CONFIGS["s"]
-    cfg = {"model_name": "MobileViT", "num_classes": 13, **widths,
-           "attention_backend": "auto", "use_autocast": True,
-           "data_backend": "synthetic", "synthetic_shape": [32, 224, 224],
-           "t_bucket": 16, "max_frames": 128, "synthetic_len": 16}
+    cfg = serve_config("MobileViT", **widths, attention_backend="auto")
     model = MobileViT(num_classes=13, seed=0, **widths).cuda().eval()
     calibrate_batchnorm(model, x)
     shapes = bottleneck_inputs(model, x)
     if shapes != [g[0] for g in VIT_GEOMETRIES]:
         raise AssertionError(f"MobileViT-s bottleneck inputs {shapes}, "
                              "not the geometries the kernels were held at")
-    launches, serve_s, n_preds, evaluated = serve_run(
-        cfg, model, {"fused": fb.LAUNCHES, "flash": fa.LAUNCHES})
-    # 2 batches x (7 bottlenecks without SE; 2 stage-1 layers at N=784)
-    want = {"fused": {"pool": 0, "main": 14},
-            "flash": {"packed": 4, "heads": 0, "dq": 0, "dkv": 0}}
+    convs = conv_kernel_inputs(model, x)
+    want_convs = [(dims + (ci,), c) for dims, c in VIT_CONV_STAGES
+                  for ci in (c, 2 * c)]
+    if convs != want_convs:
+        raise AssertionError(f"MobileViT-s conv1/conv4 inputs {convs}, not "
+                             f"the geometries the kernel was held at")
+    launches, serve_s, n_preds, evaluated = serve_run(cfg, model,
+                                                      all_counters())
+    # 2 batches x (7 bottlenecks without SE; 2 stage-1 layers at N=784;
+    # conv1 and conv4 of 3 blocks)
+    want = launches_wanted(fused={"main": 14}, flash={"packed": 4},
+                           conv={"fwd": 12})
     if launches != want:
         raise AssertionError(f"MobileViT serve: launches {launches}, "
                              f"want {want}")
@@ -834,8 +1117,8 @@ def phase_serve_mobilevit(gpu_line, feats, x):
           "evaluated": evaluated, "launches": launches,
           "serve_wall_s": serve_s})
 
+    ref = plain_logits("MobileViT-s", model, x)
     with torch.inference_mode():
-        ref = model(x, kernels=False).float()
         check = logits_against_plain("MobileViT-s", model(x).float(), ref)
     emit({"phase": "serve", "model": "MobileViT-s", **check})
     result = {"phase": "serve", "model": "MobileViT-s",
@@ -857,20 +1140,18 @@ def backend_forward(backend, model, x, ref):
     import torch
     from picklebot_tpu_torch.models.mobilevit import (MOBILEVIT_CONFIGS,
                                                       MobileViT)
-    from picklebot_tpu_torch.ops import flash_attention as fa
-    from picklebot_tpu_torch.ops import fused_bottleneck as fb
 
     other = MobileViT(num_classes=13, seed=0, attention_backend=backend,
                       **MOBILEVIT_CONFIGS["s"]).cuda().eval()
     other.load_state_dict(model.state_dict())
-    counters = {"fused": fb.LAUNCHES, "flash": fa.LAUNCHES}
+    counters = all_counters()
     zero_counters(counters)
     with torch.inference_mode():
         got = other(x).float()
         torch.cuda.synchronize()
     launches = read_counters(counters)
-    want = {"fused": {"pool": 0, "main": 7},
-            "flash": {"packed": 0, "heads": 9, "dq": 0, "dkv": 0}}
+    want = launches_wanted(fused={"main": 7}, flash={"heads": 9},
+                           conv={"fwd": 6})
     if launches != want:
         raise AssertionError(f"MobileViT {backend} forward: launches "
                              f"{launches}, want {want}")
@@ -954,6 +1235,7 @@ def profile_run(name, fn, phase):
     classes = {"flash_attention": ("fwd_kernel<",),
                "flash_attention_bwd": ("dq_kernel<", "dkv_kernel<"),
                "fused_bottleneck": ("main_kernel<", "pool_kernel<"),
+               "folded_conv": ("conv_kernel<",),
                "cudnn_grouped_wgrad": ("convolveNd_wgrad_engine<",)}
     by_class = {c: sum(t for n, t in by_name.items()
                        if any(p in n for p in pats))
@@ -1061,6 +1343,16 @@ def large3d():
     return MobileNetLarge3D(13, seed=0)
 
 
+def small3d():
+    from picklebot_tpu_torch.models.mobilenet3d import MobileNetSmall3D
+    return MobileNetSmall3D(13, seed=0)
+
+
+def movinet_a2():
+    from picklebot_tpu_torch.models.movinet import MoViNetA2
+    return MoViNetA2(13, seed=0)
+
+
 def train_step_for(model):
     """The port's train step (AdamW8bit, bf16, constant lr) on the card."""
     from picklebot_tpu_torch.core.policy import DtypePolicy
@@ -1078,8 +1370,9 @@ def phase_train_backends(counters, feats, labels):
     import math
     import torch
     out = {}
-    want = {"fused": {"pool": 0, "main": 7},
-            "flash": {"packed": 0, "heads": 9, "dq": 9, "dkv": 9}}
+    want = launches_wanted(fused={"main": 7},
+                           flash={"heads": 9, "dq": 9, "dkv": 9},
+                           conv={"fwd": 6, "dx": 6})
     for backend in ("pallas", "pallas_packed"):
         step, _ = train_step_for(mobilevit_s(backend).cuda())
         zero_counters(counters)
@@ -1176,12 +1469,15 @@ def grads_against_plain(label, make_model, x, labels):
     return dict(out, per_leaf=stats)
 
 
-def phase_train_timing(label, make_model, feats, x, labels, gpu_line):
+def phase_train_timing(label, make_model, feats, x, labels, gpu_line,
+                       conv_before_after=False):
     """Train step (bs 8, one microbatch, uint8 host batch -> optimizer
     update) by host clock after a synchronize, samples/s, peak device
     memory over those steps; forward (train mode, with a graph),
     forward+backward and the optimizer update alone by CUDA events; a
-    trace of one train step."""
+    trace of one train step. ``conv_before_after``: the step, forward and
+    backward once more with conv1/conv4 on the library conv (as before
+    the conv kernel), then the step again with the kernel."""
     import torch
     from picklebot_tpu_torch.ops.linear import dropout_rng
     from picklebot_tpu_torch.train.losses import cross_entropy
@@ -1200,6 +1496,15 @@ def phase_train_timing(label, make_model, feats, x, labels, gpu_line):
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / reps * 1e3
     peak = torch.cuda.max_memory_allocated()
+
+    def timed_steps():
+        step(0, f, lb)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step(0, f, lb)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
     lbl = torch.as_tensor(labels, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     model.train()
@@ -1216,6 +1521,14 @@ def phase_train_timing(label, make_model, feats, x, labels, gpu_line):
            "samples_per_s": 8e3 / step_ms, "forward_ms": fwd_ms,
            "backward_ms": fwd_bwd_ms - fwd_ms, "optimizer_ms": opt_ms,
            "peak_memory_bytes": peak, "card": gpu_line}
+    if conv_before_after:
+        with conv_on_library():
+            lib_fwd = time_ms(forward, reps)
+            res["conv_on_library"] = {
+                "train_step_ms": timed_steps(), "forward_ms": lib_fwd,
+                "backward_ms": time_ms(lambda: forward().backward(), reps)
+                - lib_fwd}
+        res["train_step_ms_again"] = timed_steps()
     emit(res)
     res["profile"] = profile_run(f"{label} train step",
                                  lambda: step(0, f, lb), "train_profile")
@@ -1223,9 +1536,10 @@ def phase_train_timing(label, make_model, feats, x, labels, gpu_line):
     return res
 
 
-def fused_entry(name, line, per, vit_per, launches_by_run):
+def fused_entry(name, line, fused_per, launches_by_run):
     """Summary entry of one fused-bottleneck kernel: ms, plain, bound and
-    library times summed over one bs-8 forward of each model."""
+    library times summed over one bs-8 forward of each model (the top
+    level: MobileNetLarge3D's)."""
     def sums(r):
         if not r:
             return None
@@ -1237,17 +1551,45 @@ def fused_entry(name, line, per, vit_per, launches_by_run):
                              else "operations"),
                 "library_ms": sum(v["library_ms"] for v in r),
                 "geometries": len(r)}
-    large, vit = sums(per[name]), sums(vit_per[name])
+    per_forward = {model: sums(per[name])
+                   for model, per in fused_per.items()}
+    large = per_forward["MobileNetLarge3D"]
     return {
         "name": f"fused_bottleneck_{name}", "route": "cuda",
         "source": "picklebot_tpu_torch/csrc/fused_bottleneck.cu",
         "replaces": f"picklebot_tpu/ops/pallas/fused_bottleneck.py:{line}",
         "launches": sum(r[name] for r in launches_by_run.values()),
         "launches_by_run": {k: r[name] for k, r in launches_by_run.items()},
-        "max_abs_err": max(v["err"] for v in per[name] + vit_per[name]),
+        "max_abs_err": max(v["err"] for per in fused_per.values()
+                           for v in per[name]),
         **{k: large[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")},
-        "per_forward": {"MobileNetLarge3D": large, "MobileViT-s": vit}}
+        "per_forward": per_forward}
+
+
+def conv_entry(which, rows, launches_by_run):
+    """Summary entry of the conv kernel's forward or dx: times summed over
+    the six launches of one bs-8 MobileViT-s forward (or one train
+    microbatch's backward)."""
+    def total(key):
+        return sum(r[key] for r in rows)
+    bounds = [r[f"{which}_bound"] for r in rows]
+    return {"name": f"folded_conv_{which}", "route": "cuda",
+            "source": "picklebot_tpu_torch/csrc/folded_conv.cu",
+            "replaces": "picklebot_tpu/ops/pallas/folded_conv.py:58",
+            "launches": sum(r[which] for r in launches_by_run.values()),
+            "launches_by_run": {k: r[which]
+                                for k, r in launches_by_run.items()},
+            "max_abs_err": max(r[which]["err"] for r in rows),
+            "ms": total(f"ms_{which}"),
+            "plain_ms": total(f"plain_ms_{which}"),
+            "bound_ms": sum(b["bound_ms"] for b in bounds),
+            "bound_by": ("bytes" if sum(b["bytes_ms"] for b in bounds)
+                         >= sum(b["ops_ms"] for b in bounds)
+                         else "operations"),
+            "library_ms": total(f"library_ms_{which}"),
+            "per_forward" if which == "fwd" else "per_microbatch":
+            {f"stage {r['stage']} {r['conv']}": 1 for r in rows}}
 
 
 def flash_entry(name, kernel, line, rows, launches_by_run, per_forward):
@@ -1337,39 +1679,50 @@ def main():
     seconds = {"build": time.perf_counter() - t0,
                "profiler_warmup": warm_s}
     t0 = time.perf_counter()
-    rows, per, vit_per, flash, flash_bwd = phase_kernels()
+    rows, fused_per, flash, flash_bwd, conv = phase_kernels()
     seconds["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     feats, x = clip_batch()
-    large = phase_serve_large3d(gpu_line, feats, x)
+    large = phase_serve_mobilenet("MobileNetLarge3D", large3d, GEOMETRIES,
+                                  gpu_line, feats, x)
     seconds["serve_large3d"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     vit = phase_serve_mobilevit(gpu_line, feats, x)
     seconds["serve_mobilevit"] = time.perf_counter() - t0
-    seconds["profile_large3d"] = large["profile"]["seconds"]
-    seconds["profile_mobilevit"] = vit["profile"]["seconds"]
+    t0 = time.perf_counter()
+    small = phase_serve_mobilenet("MobileNetSmall3D", small3d,
+                                  SMALL_GEOMETRIES, gpu_line, feats, x)
+    seconds["serve_small3d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    movinet = phase_serve_movinet(gpu_line, feats, x)
+    seconds["serve_movinet"] = time.perf_counter() - t0
+    for key, res in (("large3d", large), ("mobilevit", vit),
+                     ("small3d", small), ("movinet", movinet)):
+        seconds[f"profile_{key}"] = res["profile"]["seconds"]
 
-    from picklebot_tpu_torch.ops import flash_attention as fa
-    from picklebot_tpu_torch.ops import fused_bottleneck as fb
     import numpy as np
-    counters = {"fused": fb.LAUNCHES, "flash": fa.LAUNCHES}
-    no_flash = dict.fromkeys(fa.LAUNCHES, 0)
+    counters = all_counters()
     labels = np.arange(8) % 13
     train = {}
-    t0 = time.perf_counter()
-    train["MobileViT-s"] = phase_train_cli(
-        "MobileViT-s", "mobilevit_s.json", counters,
-        per_micro={"fused": {"pool": 0, "main": 7},
-                   "flash": {"packed": 2, "heads": 0, "dq": 2, "dkv": 2}},
-        per_eval={"fused": {"pool": 0, "main": 7},
-                  "flash": {"packed": 2, "heads": 0, "dq": 0, "dkv": 0}})
-    seconds["train_mobilevit"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    train["MobileNetLarge3D"] = phase_train_cli(
-        "MobileNetLarge3D", "mobilenet_large_50k.json", counters,
-        per_micro={"fused": {"pool": 8, "main": 15}, "flash": no_flash},
-        per_eval={"fused": {"pool": 8, "main": 15}, "flash": no_flash})
-    seconds["train_large3d"] = time.perf_counter() - t0
+    # per train microbatch (forward and backward) and per eval batch
+    cli_runs = [
+        ("MobileViT-s", "mobilevit_s.json",
+         launches_wanted(fused={"main": 7},
+                         flash={"packed": 2, "dq": 2, "dkv": 2},
+                         conv={"fwd": 6, "dx": 6}),
+         launches_wanted(fused={"main": 7}, flash={"packed": 2},
+                         conv={"fwd": 6})),
+        ("MobileNetLarge3D", "mobilenet_large_50k.json",
+         *[launches_wanted(fused={"pool": 8, "main": 15})] * 2),
+        ("MobileNetSmall3D", "mobilenet_small_50k.json",
+         *[launches_wanted(fused={"pool": 9, "main": 11})] * 2),
+        ("MoViNetA2", "movinet_a2_50k.json", *[launches_wanted()] * 2)]
+    for label, cfg_file, per_micro, per_eval in cli_runs:
+        t0 = time.perf_counter()
+        train[label] = phase_train_cli(label, cfg_file, counters,
+                                       per_micro=per_micro,
+                                       per_eval=per_eval)
+        seconds[f"train_{label}"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     train["backends"] = phase_train_backends(counters, feats, labels)
     train["grads"] = {
@@ -1379,9 +1732,12 @@ def main():
                                                 x, labels)}
     seconds["train_backends_and_grads"] = time.perf_counter() - t0
     train["timing"] = {
-        label: phase_train_timing(label, make, feats, x, labels, gpu_line)
+        label: phase_train_timing(label, make, feats, x, labels, gpu_line,
+                                  conv_before_after=label == "MobileViT-s")
         for label, make in (("MobileViT-s", mobilevit_s),
-                            ("MobileNetLarge3D", large3d))}
+                            ("MobileNetLarge3D", large3d),
+                            ("MobileNetSmall3D", small3d),
+                            ("MoViNetA2", movinet_a2))}
     seconds["train_timing"] = sum(t["seconds"]
                                   for t in train["timing"].values())
     seconds["total"] = time.perf_counter() - T_START
@@ -1389,11 +1745,13 @@ def main():
 
     # launches of each main-path run, read just after it
     runs = {"serve_large3d": large["launches"],
+            "serve_small3d": small["launches"],
             "serve_mobilevit": vit["launches"]["fused"],
             **{f"forward_mobilevit_{b}": vit[b]["launches"]["fused"]
                for b in ("pallas", "pallas_packed")},
             **{f"train_{m}": train[m]["launches"]["fused"]
-               for m in ("MobileViT-s", "MobileNetLarge3D")},
+               for m in ("MobileViT-s", "MobileNetLarge3D",
+                         "MobileNetSmall3D")},
             **{f"train_step_mobilevit_{b}":
                train["backends"][b]["launches"]["fused"]
                for b in ("pallas", "pallas_packed")}}
@@ -1406,11 +1764,19 @@ def main():
                       train["backends"][b]["launches"]["flash"]
                       for b in ("pallas", "pallas_packed")}
     flash_runs.update(heads_bwd_runs)
+    conv_runs = {"serve_mobilevit": vit["launches"]["conv"],
+                 **{f"forward_mobilevit_{b}": vit[b]["launches"]["conv"]
+                    for b in ("pallas", "pallas_packed")},
+                 "train_MobileViT-s":
+                 train["MobileViT-s"]["launches"]["conv"],
+                 **{f"train_step_mobilevit_{b}":
+                    train["backends"][b]["launches"]["conv"]
+                    for b in ("pallas", "pallas_packed")}}
     tpu = "picklebot_tpu/ops/pallas/"
     stage1 = {VIT_ATTENTION[0][0]: VIT_ATTENTION[0][1]}
     kernels = [
-        fused_entry("pool", 86, per, vit_per, runs),
-        fused_entry("main", 103, per, vit_per, runs),
+        fused_entry("pool", 86, fused_per, runs),
+        fused_entry("main", 103, fused_per, runs),
         flash_entry("flash_packed_fwd", "packed",
                     f"{tpu}flash_packed.py:122", flash, flash_runs, stage1),
         flash_entry("flash_fwd", "heads", f"{tpu}flash_attention.py:47",
@@ -1429,14 +1795,19 @@ def main():
         flash_bwd_entry("flash_bwd_dkv", "dkv",
                         f"{tpu}flash_attention.py:173", flash_bwd, "heads",
                         heads_bwd_runs, dict(VIT_ATTENTION)),
+        conv_entry("fwd", conv, conv_runs),
+        conv_entry("dx", conv, {k: r for k, r in conv_runs.items()
+                                if k.startswith("train_")}),
     ]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"),
               "w") as f:
         json.dump({"card": gpu_line, "seconds": seconds,
                    "geometries": rows, "flash": flash,
-                   "flash_bwd": flash_bwd,
-                   "serve": {"MobileNetLarge3D": large, "MobileViT-s": vit},
+                   "flash_bwd": flash_bwd, "folded_conv": conv,
+                   "serve": {"MobileNetLarge3D": large, "MobileViT-s": vit,
+                             "MobileNetSmall3D": small,
+                             "MoViNetA2": movinet},
                    "train": train, "kernels": kernels}, f, indent=1)
     print(gpu_line, flush=True)
     emit({"kernels": kernels})

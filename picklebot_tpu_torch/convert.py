@@ -5,10 +5,10 @@ package's variables.
 checkpoint, or one written by the JAX package's ``save_pth``) with
 ``strict=True``. ``state_dict_from_jax`` turns the JAX package's flattened
 variables, given as numpy arrays, into the port's state dict; it carries
-its own copy of the MobileNetLarge3D and MobileViT key tables and the
-layout rules of ``picklebot_tpu/train/key_maps.py`` and ``checkpoint.py``
-(conv (k..., I, O) -> (O, I, k...), 2-D linear (I, O) -> (O, I), BN
-statistics as state only).
+its own copy of the MobileNet3D (Large and Small), MobileViT and MoViNetA2
+key tables and the layout rules of ``picklebot_tpu/train/key_maps.py`` and
+``checkpoint.py`` (conv (k..., I, O) -> (O, I, k...), 2-D linear (I, O) ->
+(O, I), BN statistics as state only).
 """
 
 from __future__ import annotations
@@ -25,6 +25,16 @@ _MOBILENET3D_RULES = (
     (r"^fc1\.", "classifier.1."), (r"^fc2\.", "classifier.3."),
     (r"^block([16])\.conv\.", r"block\1.0."),
     (r"^block([16])\.bn\.", r"block\1.1."),
+    # Small3D's block4 = (conv, SE, BN), unrolled in the JAX model
+    (r"^b4_conv\.", "block4.0."), (r"^b4_se\.", "block4.1."),
+    (r"^b4_bn\.", "block4.2."),
+)
+# MoViNetA2 (key_maps.py _MOVINET_TABLE, inverted)
+_MOVINET_RULES = (
+    (r"^stem_conv\.", "block1.0."), (r"^stem_bn\.", "block1.1."),
+    (r"^head_conv\.", "conv.0."), (r"^head_bn\.", "conv.1."),
+    (r"^fc1_bn\.", "classifier.3."), (r"^fc1\.", "classifier.2."),
+    (r"^fc2\.", "classifier.6."),
 )
 # MobileViT (key_maps.py mobilevit_key_map, inverted): conv_*_bn stacks
 # are Sequential(conv, bn, silu), transformer layers ModuleList(attention,
@@ -44,7 +54,8 @@ _MOBILEVIT_RULES = (
 _CONV_MATRIX = re.compile(r"(classifier\.[13]|.*\.se\.[13])\.weight")
 
 KEY_RULES = {"MobileNetLarge3D": _MOBILENET3D_RULES,
-             "MobileViT": _MOBILEVIT_RULES}
+             "MobileNetSmall3D": _MOBILENET3D_RULES,
+             "MobileViT": _MOBILEVIT_RULES, "MoViNetA2": _MOVINET_RULES}
 
 
 def _torch_key(path: str, is_state: bool, model_name: str) -> str:
@@ -56,7 +67,7 @@ def _torch_key(path: str, is_state: bool, model_name: str) -> str:
     head, _, leaf = path.rpartition(".")
     if is_state:
         return f"{head}.running_{leaf}"          # BN mean / var
-    if head.rpartition(".")[2] == "squeeze_excite":  # SE w1 b1 w2 b2
+    if leaf in ("w1", "b1", "w2", "b2"):         # an SE block's leaves
         idx = {"1": "1", "2": "3"}[leaf[1]]
         kind = "weight" if leaf[0] == "w" else "bias"
         return f"{head}.se.{idx}.{kind}"

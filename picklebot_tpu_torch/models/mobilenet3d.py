@@ -1,11 +1,15 @@
-"""MobileNetLarge3D video classifier, channels-last.
+"""MobileNetLarge3D and MobileNetSmall3D video classifiers, channels-last.
 
 Counterpart of ``picklebot_tpu/models/mobilenet3d.py`` (plain forward), with
-the reference's module tree, so its state dict has the reference keys:
-block1 = (Conv3d 3->16 k3 s2, BN, hardswish); block2-5 = 15 Bottleneck3D;
-block6 = (1x1 Conv3d 160->960, BN, hardswish); classifier = (global average
-pool, 1x1 conv 960->1280, hardswish, 1x1 conv 1280->classes). 4,205,675
-parameters at 13 classes.
+the reference's module tree, so the state dicts have the reference keys.
+Large: block1 = (Conv3d 3->16 k3 s2, BN, hardswish); block2-5 = 15
+Bottleneck3D; block6 = (1x1 Conv3d 160->960, BN, hardswish); classifier =
+(global average pool, 1x1 conv 960->1280, hardswish, 1x1 conv
+1280->classes). 4,205,675 parameters at 13 classes. Small: the same stem;
+block2-3 = 11 Bottleneck3D (leaky relu in block2, SE on 9 of them);
+block4 = (1x1 Conv3d 96->576, SE, BN, hardswish); classifier = (pool, 1x1
+conv 576->1024, hardswish, 1x1 conv 1024->classes). 1,684,091 parameters
+at 13 classes.
 
 Input (B, T, H, W, 3) in the compute dtype (see ``train/step.preprocess``);
 output (B, num_classes) logits in the same dtype. Weights are made from a
@@ -23,6 +27,7 @@ from picklebot_tpu_torch.ops.bottleneck import Bottleneck3D
 from picklebot_tpu_torch.ops.conv import Conv3d
 from picklebot_tpu_torch.ops.linear import Dense, GlobalAvgPool
 from picklebot_tpu_torch.ops.norm import BatchNorm
+from picklebot_tpu_torch.ops.se import SEBlock
 
 
 def _conv_bn_act(cin, cout, kernel_size, stride=1, padding=0):
@@ -31,7 +36,26 @@ def _conv_bn_act(cin, cout, kernel_size, stride=1, padding=0):
                          BatchNorm(cout), act.Activation(act.hardswish))
 
 
-class MobileNetLarge3D(nn.Module):
+class _MobileNet3D(nn.Module):
+    """What the two sizes share: seeded init, and a forward of stem ->
+    bottlenecks -> head conv block -> classifier."""
+
+    def reset_parameters(self, seed: int):
+        g = torch.Generator().manual_seed(seed)
+        for m in self.modules():
+            if m is not self and hasattr(m, "reset_parameters"):
+                m.reset_parameters(g)
+
+    def forward(self, x, kernels: bool = True):
+        """``kernels=False`` runs the plain bottleneck chain even on the
+        card (the reference the kernels are held against)."""
+        x = self.block1(x)
+        for block in self.bottlenecks():
+            x = block(x, kernels=kernels)
+        return self.classifier(self.head(x))
+
+
+class MobileNetLarge3D(_MobileNet3D):
     def __init__(self, num_classes: int = 2, seed: int = 0):
         super().__init__()
         self.num_classes = num_classes
@@ -73,20 +97,51 @@ class MobileNetLarge3D(nn.Module):
             Dense(1280, num_classes))
         self.reset_parameters(seed)
 
-    def reset_parameters(self, seed: int):
-        g = torch.Generator().manual_seed(seed)
-        for m in self.modules():
-            if m is not self and hasattr(m, "reset_parameters"):
-                m.reset_parameters(g)
+    @property
+    def head(self):
+        return self.block6
 
     def bottlenecks(self):
         for stage in (self.block2, self.block3, self.block4, self.block5):
             yield from stage
 
-    def forward(self, x, kernels: bool = True):
-        """``kernels=False`` runs the plain bottleneck chain even on the
-        card (the reference the kernels are held against)."""
-        x = self.block1(x)
-        for block in self.bottlenecks():
-            x = block(x, kernels=kernels)
-        return self.classifier(self.block6(x))
+
+class MobileNetSmall3D(_MobileNet3D):
+    def __init__(self, num_classes: int = 2, seed: int = 0):
+        super().__init__()
+        self.num_classes = num_classes
+        B = Bottleneck3D
+        lrelu = act.leaky_relu
+        self.block1 = _conv_bn_act(3, 16, 3, stride=2, padding=1)
+        self.block2 = nn.Sequential(
+            B(16, 16, 16, stride=2, use_se=True, nonlinearity=lrelu,
+              dropout=0.2),
+            B(16, 24, 72, stride=2, nonlinearity=lrelu, dropout=0.2),
+            B(24, 24, 88, stride=1, nonlinearity=lrelu, dropout=0.2),
+        )
+        self.block3 = nn.Sequential(
+            B(24, 40, 96, stride=2, use_se=True, kernel_size=5, dropout=0.2),
+            B(40, 40, 240, stride=1, use_se=True, kernel_size=5, dropout=0.2),
+            B(40, 40, 240, stride=1, use_se=True, kernel_size=5, dropout=0.2),
+            B(40, 48, 120, stride=1, use_se=True, kernel_size=5, dropout=0.2),
+            B(48, 48, 144, stride=1, use_se=True, kernel_size=5, dropout=0.2),
+            B(48, 96, 288, stride=2, use_se=True, kernel_size=5, dropout=0.2),
+            B(96, 96, 576, stride=1, use_se=True, kernel_size=5, dropout=0.2),
+            B(96, 96, 576, stride=1, use_se=True, kernel_size=5, dropout=0.2),
+        )
+        # 1x1 conv -> SE -> BN -> hardswish, the reference's block4
+        self.block4 = nn.Sequential(Conv3d(96, 576, 1), SEBlock(576),
+                                    BatchNorm(576),
+                                    act.Activation(act.hardswish))
+        self.classifier = nn.Sequential(
+            GlobalAvgPool(), Dense(576, 1024), act.Activation(act.hardswish),
+            Dense(1024, num_classes))
+        self.reset_parameters(seed)
+
+    @property
+    def head(self):
+        return self.block4
+
+    def bottlenecks(self):
+        for stage in (self.block2, self.block3):
+            yield from stage

@@ -19,10 +19,11 @@ Input (B, T, H, W, 3) in the compute dtype; output (B, num_classes) logits
 in the same dtype. Every conv and linear weight is drawn from N(0, 0.02^2)
 with a ``torch.Generator`` seed and every bias is zero, as the reference
 initializes; BatchNorm starts at identity statistics. The bottlenecks run
-the fused kernels of ``ops/fused_bottleneck.py`` on the card and the
-attention the flash kernels of ``ops/flash_attention.py``; the dense
-3x3x3 convs, the 1x1 convs and the linears are cuDNN and matmul calls, as
-the JAX package leaves them to XLA.
+the fused kernels of ``ops/fused_bottleneck.py`` on the card, the
+attention the flash kernels of ``ops/flash_attention.py`` and each block's
+dense stride-1 3x3x3 ``conv1``/``conv4`` the conv kernel of
+``ops/folded_conv.py``; the stride-2 stem conv, the 1x1 convs and the
+linears are cuDNN and matmul calls, as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -43,19 +44,27 @@ from picklebot_tpu_torch.ops.norm import BatchNorm
 _INIT_STD = 0.02
 
 
-def _conv_bn_silu(cin, cout, kernel_size, stride, padding):
-    return nn.Sequential(
-        Conv3d(cin, cout, kernel_size, stride=stride, padding=padding,
-               bias=False),
-        BatchNorm(cout, affine=False), act.Activation(act.silu))
+class ConvBNSiLU(nn.Sequential):
+    """(Conv3d, BatchNorm without affine terms, SiLU) under the
+    reference's Sequential keys ``0.weight`` and ``1.running_*``, with a
+    forward that hands ``kernels`` on to the conv."""
+
+    def __init__(self, cin, cout, kernel_size, stride, padding):
+        super().__init__(
+            Conv3d(cin, cout, kernel_size, stride=stride, padding=padding,
+                   bias=False),
+            BatchNorm(cout, affine=False), act.Activation(act.silu))
+
+    def forward(self, x, kernels: bool = True):
+        return self[2](self[1](self[0](x, kernels=kernels)))
 
 
 def conv_1x1_bn(cin, cout):
-    return _conv_bn_silu(cin, cout, 1, 1, 0)
+    return ConvBNSiLU(cin, cout, 1, 1, 0)
 
 
 def conv_nxn_bn(cin, cout, kernel_size=3, stride=1):
-    return _conv_bn_silu(cin, cout, kernel_size, stride, 1)
+    return ConvBNSiLU(cin, cout, kernel_size, stride, 1)
 
 
 class FeedForward(nn.Module):
@@ -110,7 +119,7 @@ class MobileViTBlock(nn.Module):
 
     def forward(self, x, kernels: bool = True):
         y = x
-        x = self.conv2(self.conv1(x))
+        x = self.conv2(self.conv1(x, kernels=kernels))
         b, t, h, w, d = x.shape
         pt, ph, pw = self.patch_size
         tp, hp, wp = -(-t // pt), -(-h // ph), -(-w // pw)
@@ -125,7 +134,8 @@ class MobileViTBlock(nn.Module):
         x = x.permute(0, 4, 1, 5, 2, 6, 3, 7).reshape(b, tp * pt, hp * ph,
                                                       wp * pw, d)
         x = self.conv3(x[:, :t, :h, :w, :])
-        return self.conv4(torch.cat([x, y.to(x.dtype)], dim=-1))
+        return self.conv4(torch.cat([x, y.to(x.dtype)], dim=-1),
+                          kernels=kernels)
 
 
 class MobileViT(nn.Module):
@@ -186,9 +196,10 @@ class MobileViT(nn.Module):
             yield stage[0]
 
     def forward(self, x, kernels: bool = True):
-        """``kernels=False`` runs the plain bottleneck chain and ``sdpa``
-        even on the card (the reference the kernels are held against)."""
-        x = self.conv1(x)
+        """``kernels=False`` runs the plain bottleneck chain, ``sdpa`` and
+        ``F.conv3d`` even on the card (the reference the kernels are held
+        against)."""
+        x = self.conv1(x, kernels=kernels)
         for block in self.stem:
             x = block(x, kernels=kernels)
         for bottleneck, vit_block in self.trunk:

@@ -1,15 +1,23 @@
 """Model registry of the port: config -> model.
 
-Counterpart of ``picklebot_tpu/models/registry.py``. MobileNetLarge3D and
-MobileViT are ported so far; ROADMAP.md lists the other models' slices.
+Counterpart of ``picklebot_tpu/models/registry.py``. The four models the
+reference's trainer registers are ported: MobileNetLarge3D,
+MobileNetSmall3D, MobileViT (v1) and MoViNetA2 (offline). ROADMAP.md lists
+the slices of the others (MoViNetA2Stream, MobileViTV2, the 2D+LSTM
+models).
 """
 
 from __future__ import annotations
 
-from picklebot_tpu_torch.models.mobilenet3d import MobileNetLarge3D
+from picklebot_tpu_torch.models.mobilenet3d import (MobileNetLarge3D,
+                                                    MobileNetSmall3D)
 from picklebot_tpu_torch.models.mobilevit import MobileViT
+from picklebot_tpu_torch.models.movinet import MoViNetA2
 
-PORTED = ("MobileNetLarge3D", "MobileViT")
+PORTED = ("MobileNetLarge3D", "MobileNetSmall3D", "MobileViT", "MoViNetA2")
+# the models built from num_classes and the seed alone
+_PLAIN = {"MobileNetLarge3D": MobileNetLarge3D,
+          "MobileNetSmall3D": MobileNetSmall3D, "MoViNetA2": MoViNetA2}
 
 
 def _mobilevit(cfg):
@@ -34,10 +42,15 @@ def initialize_model(cfg):
     """Build the config's model with weights made from ``cfg.seed``. The
     JAX package's fold options (early_fold, fold_span, space_to_depth)
     change its execution only and are ignored here."""
+    if cfg.model_name == "MoViNetA2Stream":
+        raise NotImplementedError(
+            "MoViNetA2Stream (causal convs, stream buffers, serve --stream) "
+            "is not ported to PyTorch yet; MoViNetA2 is the offline model "
+            "(ROADMAP.md, queue A, item A12b)")
     if cfg.model_name not in PORTED:
         raise NotImplementedError(
             f"{cfg.model_name} is not ported to PyTorch yet (ported: "
             f"{', '.join(PORTED)}); ROADMAP.md lists its slice")
     if cfg.model_name == "MobileViT":
         return _mobilevit(cfg)
-    return MobileNetLarge3D(num_classes=cfg.num_classes, seed=cfg.seed)
+    return _PLAIN[cfg.model_name](num_classes=cfg.num_classes, seed=cfg.seed)

@@ -1,5 +1,6 @@
 """Elementwise activations with PyTorch's semantics, relu6-based as in
-``picklebot_tpu/ops/activations.py``; ``silu`` for MobileViT."""
+``picklebot_tpu/ops/activations.py``; ``silu`` for MobileViT,
+``leaky_relu`` for MobileNetSmall3D."""
 
 import torch
 from torch import nn
@@ -11,6 +12,11 @@ def relu(x):
 
 def relu6(x):
     return torch.clamp(x, 0, 6)
+
+
+def leaky_relu(x, negative_slope: float = 0.01):
+    # nn.LeakyReLU's default slope
+    return torch.where(x >= 0, x, negative_slope * x)
 
 
 def hardsigmoid(x):

@@ -3,10 +3,17 @@
 Counterpart of ``picklebot_tpu/ops/conv.py``. Activations are
 (B, T, H, W, C) as in the JAX package; the weight keeps the reference's
 torch layout (O, I/groups, kT, kH, kW) so state dicts load as they are.
-``Conv3d`` serves the 3x3x3 stride-2 stem and block6's 1x1 conv, which JAX
-also leaves to the compiler; the plain bottleneck chain uses its
-pointwise and depthwise forms. A 1x1x1 conv is a matmul over the channel
-axis; any other conv is ``F.conv3d`` on a channels-first view.
+``Conv3d`` serves the stride-2 stems, the 1x1 head convs, MoViNet's
+per-axis depthwise convs and MobileViT's dense 3x3x3 ``conv1``/``conv4``;
+the plain bottleneck chain uses its pointwise and depthwise forms. A 1x1x1
+conv is a matmul over the channel axis. A dense (groups=1) stride-1
+'same'-padded conv with more than one tap that
+``ops.folded_conv.folded_conv_s1_eligible`` accepts (MobileViT's
+``conv1``/``conv4``) runs, on a CUDA tensor, in the hand-written kernel of
+``ops/folded_conv.py`` straight on the channels-last tensor; with
+``kernels=False``, on the CPU, and for every other conv (strided, grouped,
+narrow) it is ``F.conv3d`` on a channels-first view, which the JAX package
+also leaves to the compiler.
 
 Parameters are f32; each op casts them to its input's dtype (the compute
 dtype of ``core.policy``).
@@ -20,6 +27,9 @@ from typing import Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from picklebot_tpu_torch.ops.folded_conv import (folded_conv_s1,
+                                                 folded_conv_s1_eligible)
 
 IntOrTuple = Union[int, Tuple[int, int, int]]
 
@@ -83,11 +93,29 @@ class Conv3d(nn.Module):
         return (self.kernel_size == (1, 1, 1) and self.stride == (1, 1, 1)
                 and self.padding == (0, 0, 0) and self.groups == 1)
 
-    def forward(self, x):
+    def _same_pads(self):
+        return tuple((p, p) for p in self.padding)
+
+    def takes_folded_kernel(self, x) -> bool:
+        """Whether ``forward(x)`` on the card runs the folded-conv kernel:
+        a dense conv with more than one tap that the kernel's predicate
+        accepts."""
+        w_shape = self.kernel_size + (self.in_channels, self.out_channels)
+        return (self.groups == 1 and math.prod(self.kernel_size) > 1
+                and folded_conv_s1_eligible(x.shape, w_shape, self.stride,
+                                            self._same_pads()))
+
+    def forward(self, x, kernels: bool = True):
+        """``kernels=False`` keeps an eligible conv on ``F.conv3d`` even on
+        the card (the plain path the kernel is held against)."""
         bias = None if self.bias is None else self.bias.to(x.dtype)
         if self.is_pointwise:
             out = pointwise_conv(
                 x, self.weight.view(self.out_channels, self.in_channels).t())
+            return out if bias is None else out + bias
+        if kernels and x.is_cuda and self.takes_folded_kernel(x):
+            w = self.weight.permute(2, 3, 4, 1, 0).to(x.dtype).contiguous()
+            out = folded_conv_s1(x.contiguous(), w, self._same_pads())
             return out if bias is None else out + bias
         out = F.conv3d(x.permute(0, 4, 1, 2, 3), self.weight.to(x.dtype),
                        bias, self.stride, self.padding, groups=self.groups)

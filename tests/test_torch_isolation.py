@@ -22,9 +22,11 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "picklebot_tpu" or m.startswith("picklebot_tpu."))
 from picklebot_tpu_torch.ops import flash_attention as fa
+from picklebot_tpu_torch.ops import folded_conv as fc
 from picklebot_tpu_torch.ops import fused_bottleneck as fb
 print(json.dumps({{"modules": names, "bad": bad,
-                  "launches": fb.LAUNCHES, "flash_launches": fa.LAUNCHES}}))
+                  "launches": fb.LAUNCHES, "flash_launches": fa.LAUNCHES,
+                  "conv_launches": fc.LAUNCHES}}))
 """
 
 
@@ -43,11 +45,13 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 "data.dataset", "train.step", "utils.devices",
                 "core.policy", "ops.attention", "ops.flash_attention",
                 "models.mobilevit", "cli", "train.loop", "train.optim",
-                "train.losses", "train.metrics", "data.loader"):
+                "train.losses", "train.metrics", "data.loader",
+                "ops.folded_conv", "models.movinet"):
         assert f"picklebot_tpu_torch.{mod}" in res["modules"]
     assert res["launches"] == {"pool": 0, "main": 0}
     assert res["flash_launches"] == {"packed": 0, "heads": 0, "dq": 0,
                                      "dkv": 0}
+    assert res["conv_launches"] == {"fwd": 0, "dx": 0}
 
 
 def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
@@ -65,4 +69,6 @@ def test_unported_model_points_to_roadmap():
     from picklebot_tpu_torch.models.registry import initialize_model
     from picklebot_tpu_torch.utils.config import Config
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        initialize_model(Config(model_name="MoViNetA2").validate())
+        initialize_model(Config(model_name="MoViNetA2Stream").validate())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        initialize_model(Config(model_name="MobileViTV2").validate())
