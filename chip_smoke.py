@@ -1,9 +1,14 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port on one NVIDIA card and check it end to end.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                     # every phase
+    python3 chip_smoke.py --only conv          # the conv kernel's rows
+    python3 chip_smoke.py --only kernels serve # or any of kernels, conv,
+                                               # serve, train, timing
 
-Phases, in order (each prints JSON lines; any failure exits non-zero):
+Phases, in order (each prints JSON lines; any failure exits non-zero; a
+run with --only says on a JSON line which phases it skipped and prints no
+kernels summary):
   1. device   the card's name and power limit (nvidia-smi), torch and CUDA
   2. build    nvcc builds every kernel from picklebot_tpu_torch/csrc/
               (fused_bottleneck, flash_attention, folded_conv), one process
@@ -16,14 +21,19 @@ Phases, in order (each prints JSON lines; any failure exits non-zero):
               with TF32 off; the flash attention kernel, packed with and
               without lse at MobileViT-s's stage-1 shape, per head at its
               three stages' shapes and qkv-packed at stage 1 (bf16), f32
-              cases with TF32 off, and head dims 32 and 64; the flash
+              cases with TF32 off, and head dims 32 and 64; the fused
+              kernels at batches past a grid's 65,535 y blocks (fb_main
+              with B*T' = 67,200, fb_pool with B = 65,600); the flash
               backward kernels (dQ, dK/dV) against flash_backward_reference
               at the same shapes; the conv kernel, forward and dx, at
-              MobileViT-s's six conv1/conv4 geometries (bf16), at
+              MobileViT-s's six conv1/conv4 geometries (bf16; the plan each
+              takes, stage 1 unsplit and stage 3 split over taps), at
               MobileViT-xxs's widths and the per-axis kernel sizes (1,3,3),
               (3,3,1), (1,5,3) (bf16 and f32), and in f32 with TF32 off at
-              stage 2; kernel, plain and library times by CUDA events, and
-              bounds
+              stage 2; kernel, plain and library times by CUDA events,
+              bounds, TFLOP/s; the HMMA count of the bf16 conv's SASS
+              (cuobjdump) and its ptxas registers and spills (0 HMMA or a
+              spill fails the run)
   4. serve    picklebot_tpu_torch.serve.main on 16 synthetic clips at full
               width from a seeded .pth, for MobileNetLarge3D, MobileViT-s
               ('auto' attention), MobileNetSmall3D and MoViNet-A2: checks
@@ -189,6 +199,8 @@ TRAIN_CUTS = {"data_backend": "synthetic", "synthetic_shape": [32, 224, 224],
               "batch_size": 8, "effective_batch_size": 16,
               "synthetic_len": 48}
 TRAIN_STEPS = 3
+# what --only can pick; with no --only every phase runs
+PHASES = ("kernels", "conv", "serve", "train", "timing")
 
 
 def emit(obj):
@@ -217,6 +229,29 @@ def time_ms(fn, reps=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps=5, tries=3):
+    """Mean device time (ms) per call of the kernels ``fn`` launches, from
+    a torch.profiler trace of ``reps`` calls after one warm-up call: their
+    own time, without the gaps that host work leaves between launches. A
+    trace can come back without device events (one on an H100 did), so up
+    to ``tries`` traces are taken; None if none held any."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if spans:
+            return sum(spans) / 1e3 / reps
+    return None
 
 
 def roofline(nbytes, flops, dtype_name):
@@ -678,8 +713,9 @@ def conv_bound(shape, co, kernel, elem):
     m = b * t * h * w
     nbytes = (m * (ci + co) + kernel[0] * kernel[1] * kernel[2] * ci * co
               ) * elem
-    return roofline(nbytes, 2 * taps_inside * ci * co,
-                    "bfloat16" if elem == 2 else "float32")
+    flops = 2 * taps_inside * ci * co
+    return dict(roofline(nbytes, flops, "bfloat16" if elem == 2
+                         else "float32"), flops=flops)
 
 
 def conv_case(shape, co, kernel, dtype, seed):
@@ -703,18 +739,29 @@ def conv_case(shape, co, kernel, dtype, seed):
 
 def conv_rows(reps):
     """The conv kernel against its plain version on the card, forward and
-    dx: MobileViT-s's six conv1/conv4 geometries (bf16, with kernel, plain
-    and library times and bounds), MobileViT-xxs's widths and the JAX
-    test's per-axis kernel sizes (bf16 and f32), and one f32 case at
-    stage 2 with TF32 off. Plain: ``folded_conv_reference`` (forward; for
-    dx on the output gradient with the flipped weight). Library, timed as
-    a yardstick only: ``F.conv3d`` on the channels_last_3d view with the
+    dx: MobileViT-s's six conv1/conv4 geometries (bf16, with the plan each
+    launch takes, kernel, plain and library times, bounds, achieved
+    TFLOP/s and the ratios to bound and library; kernel and library
+    device times from a trace too, since at stages 2 and 3 a call's host
+    work outlasts its kernels), MobileViT-xxs's widths
+    and the JAX test's per-axis kernel sizes (bf16 and f32), and one f32
+    case at stage 2 with TF32 off. Stage 1's forward runs unsplit and
+    stage 3's split over taps (both checked here); a split case is also
+    held against ``folded_conv_split_reference``, the plain version of the
+    split's order. Plain: ``folded_conv_reference`` (forward; for dx on
+    the output gradient with the flipped weight). Library, timed as a
+    yardstick only: ``F.conv3d`` on the channels_last_3d view with the
     weight in cuDNN's layout, and ``torch.nn.grad.conv3d_input`` for dx
     (its result is also held against the kernel's)."""
     import torch
     import torch.nn.functional as F
     from picklebot_tpu_torch.core.policy import DtypePolicy
     from picklebot_tpu_torch.ops import folded_conv as fc
+
+    def plans(shape, co, kernel):
+        m, taps = shape[0] * shape[1] * shape[2] * shape[3], (
+            kernel[0] * kernel[1] * kernel[2])
+        return fc._plan(m, co, taps), fc._plan(m, shape[-1], taps)
 
     def held(name, shape, co, kernel, dtype, seed):
         x, w, g, pads, w_flip, w_lib = conv_case(shape, co, kernel, dtype,
@@ -737,6 +784,11 @@ def conv_rows(reps):
                     "dx": check_bf16_flash(f"{name} dx", dx, want_dx),
                     "dx_vs_library": check_bf16_flash(f"{name} dx (library)",
                                                      dx, lib_dx)}
+            plan = plans(shape, co, kernel)[0]
+            if plan.splits > 1:
+                errs["fwd_vs_split_plain"] = check_bf16_flash(
+                    f"{name} fwd (split plain)", out,
+                    fc.folded_conv_split_reference(x, w, pads, plan.splits))
         else:
             errs = {"fwd": dict(err=check_close(f"{name} fwd", out, want,
                                                 F32_REL_TOL)[0]),
@@ -751,11 +803,17 @@ def conv_rows(reps):
         for conv, ci in (("conv1", c), ("conv4", 2 * c)):
             shape, kernel = (b, t, h, w_, ci), (3, 3, 3)
             name = f"conv stage {stage} {conv} bf16"
+            plan_fwd, plan_dx = plans(shape, c, kernel)
+            if (stage == 1) != (plan_fwd.splits == 1):
+                raise AssertionError(f"{name}: plan {plan_fwd}; stage 1 "
+                                     "must run unsplit, stage 3 split")
             errs, (x, w, g, pads, w_flip, w_lib) = held(
                 name, shape, c, kernel, torch.bfloat16, 700 + 10 * stage + ci)
             xc, gc = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
             row = {"stage": stage, "conv": conv, "x": list(shape), "Co": c,
                    "k": list(kernel), "dtype": "bfloat16", **errs,
+                   "plan_fwd": plan_fwd._asdict(),
+                   "plan_dx": plan_dx._asdict(),
                    "fwd_bound": conv_bound(shape, c, kernel, 2),
                    "dx_bound": conv_bound(shape[:-1] + (c,), ci, kernel, 2),
                    "ms_fwd": time_ms(lambda: fc._conv(x, w, pads, "fwd"),
@@ -772,6 +830,24 @@ def conv_rows(reps):
                    "library_ms_dx": time_ms(
                        lambda: torch.nn.grad.conv3d_input(
                            xc.shape, w_lib, gc, padding=1), reps)}
+            row.update(
+                device_ms_fwd=device_ms(lambda: fc._conv(x, w, pads, "fwd"),
+                                        reps),
+                device_ms_dx=device_ms(lambda: fc._conv(g, w_flip, pads,
+                                                        "dx"), reps),
+                library_device_ms_fwd=device_ms(
+                    lambda: F.conv3d(xc, w_lib, padding=1), reps),
+                library_device_ms_dx=device_ms(
+                    lambda: torch.nn.grad.conv3d_input(xc.shape, w_lib, gc,
+                                                       padding=1), reps))
+            for which in ("fwd", "dx"):
+                ms, bnd = row[f"ms_{which}"], row[f"{which}_bound"]
+                row[f"tflops_{which}"] = bnd["flops"] / ms / 1e9
+                row[f"x_bound_{which}"] = ms / bnd["bound_ms"]
+                row[f"x_library_{which}"] = ms / row[f"library_ms_{which}"]
+                dev = row[f"device_ms_{which}"]
+                row[f"device_tflops_{which}"] = (
+                    None if dev is None else bnd["flops"] / dev / 1e9)
             emit({"phase": "kernels", "kernel": "folded_conv", **row})
             rows.append(row)
             del x, w, g, w_flip, w_lib, xc, gc
@@ -779,7 +855,8 @@ def conv_rows(reps):
     for i, (shape, co, kernel) in enumerate(CONV_EXTRA_CASES):
         key = f"{list(shape)}->{co} k{list(kernel)}"
         extra[key] = {"bf16": held(f"conv {key} bf16", shape, co, kernel,
-                                   torch.bfloat16, 800 + i)[0]}
+                                   torch.bfloat16, 800 + i)[0],
+                      "plan_fwd": plans(shape, co, kernel)[0]._asdict()}
         with DtypePolicy.f32().precision():
             extra[key]["f32"] = held(f"conv {key} f32", shape, co, kernel,
                                      torch.float32, 850 + i)[0]
@@ -794,6 +871,83 @@ def conv_rows(reps):
     return rows
 
 
+def conv_sass_check(lib_path):
+    """The bf16 conv on the tensor cores: the count of HMMA instructions in
+    each conv function's SASS (``cuobjdump -sass`` of the built library),
+    and ptxas's registers and spill bytes for each from the build log. Fails
+    if a bf16 conv function has no HMMA or spills."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    hmma, name = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            name = found.group(1)
+            hmma[name] = 0
+        elif name and "HMMA" in line:
+            hmma[name] += 1
+    ptxas, name = {}, None
+    for line in lib_path.with_suffix(".log").read_text().splitlines():
+        found = re.search(r"Compiling entry function '(\S+)'", line)
+        if found:
+            name = found.group(1)
+            ptxas[name] = {}
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", line)
+        if name and spills:
+            ptxas[name].update(spill_stores=int(spills.group(1)),
+                               spill_loads=int(spills.group(2)))
+        regs = re.search(r"Used (\d+) registers", line)
+        if name and regs:
+            ptxas[name]["registers"] = int(regs.group(1))
+    bf16 = {n: dict(hmma=c, **ptxas.get(n, {})) for n, c in hmma.items()
+            if "conv_bf16_kernel" in n}
+    out = {"phase": "kernels", "kernel": "folded_conv", "sass": {
+        n: dict(hmma=c, **ptxas.get(n, {})) for n, c in hmma.items()}}
+    emit(out)
+    if not bf16 or any(v["hmma"] == 0 or v.get("spill_stores", 1)
+                       or v.get("spill_loads", 1) for v in bf16.values()):
+        raise AssertionError(f"bf16 conv functions {bf16}: each needs HMMA "
+                             "instructions and no spills")
+    return out["sass"]
+
+
+def fused_large_batch_cases():
+    """The fused kernels at batches past the 65,535 of a grid's y axis:
+    fb_main with B*T' = 2,100 x 32 = 67,200 frames and fb_pool with B =
+    65,600 samples, small frames (4x4, k 3, stride 1, C 16, E 32, bf16),
+    each against its plain version."""
+    import torch
+    from picklebot_tpu_torch.ops import fused_bottleneck as fb
+    k, s, e, co = 3, 1, 32, 16
+    res = {}
+    x, w = make_case((2100, 30, 4, 4, 16), k, e, co, torch.bfloat16, 150)
+    scale = torch.rand((x.shape[0], e), device="cuda", generator=(
+        torch.Generator(device="cuda").manual_seed(151)))
+    got = fb.fused_main(x, w["w1"], w["wd"], w["w2"], scale, k, s)
+    want = fb.main_reference(x, w["w1"], w["wd"], w["w2"], scale, k, s)
+    torch.cuda.synchronize()
+    if got.shape[0] * got.shape[1] <= 65535:
+        raise AssertionError(f"fb_main large batch: output {got.shape}")
+    res["main"] = dict(x=list(x.shape), frames=got.shape[0] * got.shape[1],
+                       err=check_close("fb_main B*T' > 65535", got, want,
+                                       BF16_REL_TOL)[0])
+    del x, w, scale, got, want
+    x, w = make_case((65600, 1, 4, 4, 16), k, e, co, torch.bfloat16, 152)
+    got = fb.fused_pool(x, w["w1"], w["wd"], k, s)
+    want = fb.pool_reference(x, w["w1"], w["wd"], k, s)
+    torch.cuda.synchronize()
+    res["pool"] = dict(x=list(x.shape), err=check_close(
+        "fb_pool B > 65535", got, want, BF16_REL_TOL)[0])
+    emit({"phase": "kernels", "large_batch_case": res,
+          "rel_tol": BF16_REL_TOL})
+    return res
+
+
 def phase_kernels():
     rows, fused_per = [], {}
     for model, geometries, seed0 in (
@@ -804,8 +958,9 @@ def phase_kernels():
                                                   reps=5)
         rows += model_rows
     fused_f32_case()
-    return (rows, fused_per, flash_rows(reps=5), flash_bwd_rows(reps=5),
-            conv_rows(reps=5))
+    large_batch = fused_large_batch_cases()
+    return (rows, fused_per, large_batch, flash_rows(reps=5),
+            flash_bwd_rows(reps=5), conv_rows(reps=5))
 
 
 def calibrate_batchnorm(model, x):
@@ -1235,7 +1390,8 @@ def profile_run(name, fn, phase):
     classes = {"flash_attention": ("fwd_kernel<",),
                "flash_attention_bwd": ("dq_kernel<", "dkv_kernel<"),
                "fused_bottleneck": ("main_kernel<", "pool_kernel<"),
-               "folded_conv": ("conv_kernel<",),
+               "folded_conv": ("conv_f32_kernel", "conv_bf16_kernel<",
+                               "conv_split_sum_kernel"),
                "cudnn_grouped_wgrad": ("convolveNd_wgrad_engine<",)}
     by_class = {c: sum(t for n, t in by_name.items()
                        if any(p in n for p in pats))
@@ -1572,7 +1728,8 @@ def conv_entry(which, rows, launches_by_run):
     the six launches of one bs-8 MobileViT-s forward (or one train
     microbatch's backward)."""
     def total(key):
-        return sum(r[key] for r in rows)
+        vals = [r[key] for r in rows]
+        return None if None in vals else sum(vals)
     bounds = [r[f"{which}_bound"] for r in rows]
     return {"name": f"folded_conv_{which}", "route": "cuda",
             "source": "picklebot_tpu_torch/csrc/folded_conv.cu",
@@ -1588,6 +1745,8 @@ def conv_entry(which, rows, launches_by_run):
                          >= sum(b["ops_ms"] for b in bounds)
                          else "operations"),
             "library_ms": total(f"library_ms_{which}"),
+            "device_ms": total(f"device_ms_{which}"),
+            "library_device_ms": total(f"library_device_ms_{which}"),
             "per_forward" if which == "fwd" else "per_microbatch":
             {f"stage {r['stage']} {r['conv']}": 1 for r in rows}}
 
@@ -1648,8 +1807,28 @@ def flash_bwd_entry(name, kernel, line, rows, entry, launches_by_run,
             "per_microbatch": {str(n): c for n, c in per_step.items()}}
 
 
-def main():
+def parse_args(argv):
+    import argparse
+    ap = argparse.ArgumentParser(
+        description="Run the PyTorch/CUDA port on one NVIDIA card and check "
+        "it end to end.")
+    ap.add_argument(
+        "--only", nargs="+", choices=PHASES,
+        help="run only these phases after the device and build phases: "
+        "kernels (every kernel against its plain version), conv (the conv "
+        "kernel's rows alone), serve, train (the CLI runs, the attention "
+        "backends, the gradients against the plain path), timing (the "
+        "train-step timings). A partial run prints no kernels summary")
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
     import torch
+    only = set(parse_args(argv).only or ())
+
+    def selected(phase):
+        return not only or phase in only
+
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs the "
               "port on an NVIDIA card", file=sys.stderr)
@@ -1678,70 +1857,105 @@ def main():
 
     seconds = {"build": time.perf_counter() - t0,
                "profiler_warmup": warm_s}
+    rows = fused_per = large_batch = flash = flash_bwd = conv = sass = None
+    large = vit = small = movinet = None
     t0 = time.perf_counter()
-    rows, fused_per, flash, flash_bwd, conv = phase_kernels()
-    seconds["kernels"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    feats, x = clip_batch()
-    large = phase_serve_mobilenet("MobileNetLarge3D", large3d, GEOMETRIES,
-                                  gpu_line, feats, x)
-    seconds["serve_large3d"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    vit = phase_serve_mobilevit(gpu_line, feats, x)
-    seconds["serve_mobilevit"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    small = phase_serve_mobilenet("MobileNetSmall3D", small3d,
-                                  SMALL_GEOMETRIES, gpu_line, feats, x)
-    seconds["serve_small3d"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    movinet = phase_serve_movinet(gpu_line, feats, x)
-    seconds["serve_movinet"] = time.perf_counter() - t0
-    for key, res in (("large3d", large), ("mobilevit", vit),
-                     ("small3d", small), ("movinet", movinet)):
-        seconds[f"profile_{key}"] = res["profile"]["seconds"]
+    if selected("kernels"):
+        rows, fused_per, large_batch, flash, flash_bwd, conv = \
+            phase_kernels()
+    elif "conv" in only:
+        conv = conv_rows(reps=5)
+    if selected("kernels") or "conv" in only:
+        sass = conv_sass_check(libs["folded_conv"])
+        seconds["kernels"] = time.perf_counter() - t0
+    if selected("serve") or selected("train") or selected("timing"):
+        feats, x = clip_batch()
+    if selected("serve"):
+        t0 = time.perf_counter()
+        large = phase_serve_mobilenet("MobileNetLarge3D", large3d,
+                                      GEOMETRIES, gpu_line, feats, x)
+        seconds["serve_large3d"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        vit = phase_serve_mobilevit(gpu_line, feats, x)
+        seconds["serve_mobilevit"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        small = phase_serve_mobilenet("MobileNetSmall3D", small3d,
+                                      SMALL_GEOMETRIES, gpu_line, feats, x)
+        seconds["serve_small3d"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        movinet = phase_serve_movinet(gpu_line, feats, x)
+        seconds["serve_movinet"] = time.perf_counter() - t0
+        for key, res in (("large3d", large), ("mobilevit", vit),
+                         ("small3d", small), ("movinet", movinet)):
+            seconds[f"profile_{key}"] = res["profile"]["seconds"]
 
     import numpy as np
     counters = all_counters()
     labels = np.arange(8) % 13
     train = {}
-    # per train microbatch (forward and backward) and per eval batch
-    cli_runs = [
-        ("MobileViT-s", "mobilevit_s.json",
-         launches_wanted(fused={"main": 7},
-                         flash={"packed": 2, "dq": 2, "dkv": 2},
-                         conv={"fwd": 6, "dx": 6}),
-         launches_wanted(fused={"main": 7}, flash={"packed": 2},
-                         conv={"fwd": 6})),
-        ("MobileNetLarge3D", "mobilenet_large_50k.json",
-         *[launches_wanted(fused={"pool": 8, "main": 15})] * 2),
-        ("MobileNetSmall3D", "mobilenet_small_50k.json",
-         *[launches_wanted(fused={"pool": 9, "main": 11})] * 2),
-        ("MoViNetA2", "movinet_a2_50k.json", *[launches_wanted()] * 2)]
-    for label, cfg_file, per_micro, per_eval in cli_runs:
+    if selected("train"):
+        # per train microbatch (forward and backward) and per eval batch
+        cli_runs = [
+            ("MobileViT-s", "mobilevit_s.json",
+             launches_wanted(fused={"main": 7},
+                             flash={"packed": 2, "dq": 2, "dkv": 2},
+                             conv={"fwd": 6, "dx": 6}),
+             launches_wanted(fused={"main": 7}, flash={"packed": 2},
+                             conv={"fwd": 6})),
+            ("MobileNetLarge3D", "mobilenet_large_50k.json",
+             *[launches_wanted(fused={"pool": 8, "main": 15})] * 2),
+            ("MobileNetSmall3D", "mobilenet_small_50k.json",
+             *[launches_wanted(fused={"pool": 9, "main": 11})] * 2),
+            ("MoViNetA2", "movinet_a2_50k.json", *[launches_wanted()] * 2)]
+        for label, cfg_file, per_micro, per_eval in cli_runs:
+            t0 = time.perf_counter()
+            train[label] = phase_train_cli(label, cfg_file, counters,
+                                           per_micro=per_micro,
+                                           per_eval=per_eval)
+            seconds[f"train_{label}"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        train[label] = phase_train_cli(label, cfg_file, counters,
-                                       per_micro=per_micro,
-                                       per_eval=per_eval)
-        seconds[f"train_{label}"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    train["backends"] = phase_train_backends(counters, feats, labels)
-    train["grads"] = {
-        "MobileViT-s": grads_against_plain("MobileViT-s", mobilevit_s, x,
-                                           labels),
-        "MobileNetLarge3D": grads_against_plain("MobileNetLarge3D", large3d,
-                                                x, labels)}
-    seconds["train_backends_and_grads"] = time.perf_counter() - t0
-    train["timing"] = {
-        label: phase_train_timing(label, make, feats, x, labels, gpu_line,
-                                  conv_before_after=label == "MobileViT-s")
-        for label, make in (("MobileViT-s", mobilevit_s),
-                            ("MobileNetLarge3D", large3d),
-                            ("MobileNetSmall3D", small3d),
-                            ("MoViNetA2", movinet_a2))}
-    seconds["train_timing"] = sum(t["seconds"]
-                                  for t in train["timing"].values())
+        train["backends"] = phase_train_backends(counters, feats, labels)
+        train["grads"] = {
+            "MobileViT-s": grads_against_plain("MobileViT-s", mobilevit_s, x,
+                                               labels),
+            "MobileNetLarge3D": grads_against_plain("MobileNetLarge3D",
+                                                    large3d, x, labels)}
+        seconds["train_backends_and_grads"] = time.perf_counter() - t0
+    if selected("timing"):
+        train["timing"] = {
+            label: phase_train_timing(
+                label, make, feats, x, labels, gpu_line,
+                conv_before_after=label == "MobileViT-s")
+            for label, make in (("MobileViT-s", mobilevit_s),
+                                ("MobileNetLarge3D", large3d),
+                                ("MobileNetSmall3D", small3d),
+                                ("MoViNetA2", movinet_a2))}
+        seconds["train_timing"] = sum(t["seconds"]
+                                      for t in train["timing"].values())
     seconds["total"] = time.perf_counter() - T_START
     emit({"phase": "seconds", **seconds})
+
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    record = {"card": gpu_line, "seconds": seconds, "sass": sass,
+              "geometries": rows, "large_batch": large_batch, "flash": flash,
+              "flash_bwd": flash_bwd, "folded_conv": conv,
+              "serve": {"MobileNetLarge3D": large, "MobileViT-s": vit,
+                        "MobileNetSmall3D": small, "MoViNetA2": movinet},
+              "train": train}
+    if only:
+        skipped = [p for p in PHASES if not selected(p)
+                   and not (p == "conv" and selected("kernels"))]
+        emit({"phase": "skipped", "phases": skipped,
+              "note": "a partial run (--only): no summary line"})
+        with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_only.json"),
+                  "w") as f:
+            json.dump(dict(record, only=sorted(only)), f, indent=1)
+        print(gpu_line, flush=True)
+        emit({"ok": True, "only": sorted(only),
+              "device": {"platform": "gpu",
+                         "kind": torch.cuda.get_device_name(0),
+                         "count": torch.cuda.device_count()}})
+        return 0
 
     # launches of each main-path run, read just after it
     runs = {"serve_large3d": large["launches"],
@@ -1799,16 +2013,9 @@ def main():
         conv_entry("dx", conv, {k: r for k, r in conv_runs.items()
                                 if k.startswith("train_")}),
     ]
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"),
               "w") as f:
-        json.dump({"card": gpu_line, "seconds": seconds,
-                   "geometries": rows, "flash": flash,
-                   "flash_bwd": flash_bwd, "folded_conv": conv,
-                   "serve": {"MobileNetLarge3D": large, "MobileViT-s": vit,
-                             "MobileNetSmall3D": small,
-                             "MoViNetA2": movinet},
-                   "train": train, "kernels": kernels}, f, indent=1)
+        json.dump(dict(record, kernels=kernels), f, indent=1)
     print(gpu_line, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
@@ -1818,4 +2025,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -32,6 +32,11 @@
 // of that sample's frames and tiles in a fixed order, and the per-thread
 // partial sums are reduced in a fixed order. No atomics.
 //
+// Both grids are one-dimensional (grid.x takes up to 2^31 - 1 blocks, grid.y
+// only 65,535), so no batch size the reference takes is refused: the pool
+// pass's block index is b * E-chunks + chunk, the main pass's
+// (b * T' + t') * tiles + tile.
+//
 // The temporal quirk of Bottleneck3D (temporal kernel 1, but the integer
 // stride and the padding k//2 act on T) is index arithmetic: output frame t'
 // reads input frame t'*s - k//2, and a frame outside [0, T) is all zero.
@@ -190,7 +195,8 @@ pool_kernel(const T* __restrict__ x, const T* __restrict__ w1,
   float* es = reinterpret_cast<float*>(smem + l.es);
   float* red = reinterpret_cast<float*>(smem + l.red);
 
-  const int b = blockIdx.y, e0 = blockIdx.x * kEC;
+  const int n_chunks = (g.E + kEC - 1) / kEC;
+  const int b = blockIdx.x / n_chunks, e0 = (blockIdx.x % n_chunks) * kEC;
   const int ec = min(kEC, g.E - e0);
   const int e = threadIdx.x % kEC, grp = threadIdx.x / kEC;
   load_w1_wd(w1, wd, w1s, wds, g, e0, ec);
@@ -236,9 +242,10 @@ main_kernel(const T* __restrict__ x, const T* __restrict__ w1,
   float* w2s = reinterpret_cast<float*>(smem + l.w2s);
   float* ds = reinterpret_cast<float*>(smem + l.ds);
 
-  const int n = blockIdx.y, b = n / g.To, to = n % g.To;
-  const int h0 = (blockIdx.x / g.n_tw) * g.th;
-  const int w0 = (blockIdx.x % g.n_tw) * g.tw;
+  const int n = blockIdx.x / g.n_tiles, b = n / g.To, to = n % g.To;
+  const int tile = blockIdx.x % g.n_tiles;
+  const int h0 = (tile / g.n_tw) * g.th;
+  const int w0 = (tile % g.n_tw) * g.tw;
   const int npix = g.th * g.tw, total = npix * g.Co;
   T* out_frame = out + size_t(n) * g.Ho * g.Wo * g.Co;
   const int ti = to * g.s - g.p;
@@ -339,8 +346,9 @@ int launch_pool(const void* x, const void* w1, const void* wd, void* pooled,
       pool_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(l.total));
   if (err != cudaSuccess) return int(err);
-  dim3 grid((E + kEC - 1) / kEC, B);
-  pool_kernel<T><<<grid, kThreads, l.total, stream>>>(
+  const long long blocks = (long long)((E + kEC - 1) / kEC) * B;
+  if (blocks > 2147483647LL) return int(cudaErrorInvalidValue);
+  pool_kernel<T><<<(unsigned)blocks, kThreads, l.total, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w1),
       static_cast<const T*>(wd), static_cast<float*>(pooled), g);
   return int(cudaGetLastError());
@@ -355,13 +363,13 @@ int launch_main(const void* x, const void* w1, const void* wd,
   Layout l;
   if (!make_geom(g, B, Tn, H, W, C, E, Co, k, s, sizeof(T), true, &l))
     return int(cudaErrorInvalidValue);
-  if (size_t(B) * g.To > 65535) return int(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       main_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(l.total));
   if (err != cudaSuccess) return int(err);
-  dim3 grid(g.n_tiles, B * g.To);
-  main_kernel<T><<<grid, kThreads, l.total, stream>>>(
+  const long long blocks = (long long)g.n_tiles * B * g.To;
+  if (blocks > 2147483647LL) return int(cudaErrorInvalidValue);
+  main_kernel<T><<<(unsigned)blocks, kThreads, l.total, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w1),
       static_cast<const T*>(wd), static_cast<const T*>(w2), scale,
       static_cast<T*>(out), g);

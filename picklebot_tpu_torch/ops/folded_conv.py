@@ -9,11 +9,18 @@ fold (``wb == W``) its function is the conv above, and that function is
 what is ported. The lane folding, the per-tap f32 slabs and the K-packing
 of adjacent W taps are TPU devices and are not carried over. On a CUDA
 tensor the work runs in the hand-written kernel of ``csrc/folded_conv.cu``
-(an implicit GEMM; see the note there for its bound on the H100: the conv
-does 900 to 1,700 FLOPs per byte at MobileViT-s's shapes, so operations
-bound it). On a CPU tensor the wrapper computes ``folded_conv_reference``,
-the plain version (``F.conv3d`` on a channels-first view, the counterpart
-of ``_ref_conv``); on a CUDA tensor it launches the kernel or raises.
+(an implicit GEMM, bf16 on the tensor cores; see the note there for its
+bound on the H100: the conv does 900 to 1,700 FLOPs per byte at
+MobileViT-s's shapes, so operations bound it). On a CPU tensor the wrapper
+computes ``folded_conv_reference``, the plain version (``F.conv3d`` on a
+channels-first view, the counterpart of ``_ref_conv``); on a CUDA tensor it
+launches the kernel or raises.
+
+The bf16 kernel's launch follows ``_plan``: its block tile, and a split of
+the taps into contiguous ranges (``tap_ranges``) where the grid would
+leave the card's SMs short of blocks. A split conv sums f32 partials over
+the ranges in order and rounds once; ``folded_conv_split_reference`` is
+the plain version of that order.
 
 Under autograd (grad enabled and x or w requiring grad) ``folded_conv_s1``
 runs ``FoldedConvS1Fn``: forward the kernel; dx the same kernel on the
@@ -30,6 +37,7 @@ the input gradient.
 from __future__ import annotations
 
 import ctypes
+from collections import namedtuple
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +46,34 @@ LAUNCHES = {"fwd": 0, "dx": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FNS = {}
+
+# the bf16 kernel's tiles (csrc/folded_conv.cu): 128 output positions by 64
+# or 96 output channels; the H100's SM count
+_TILE_M, _TILE_NS, _SMS = 128, (64, 96), 132
+
+Plan = namedtuple("Plan", "tile_n splits blocks workspace")
+
+
+def _plan(m: int, co: int, taps: int) -> Plan:
+    """The bf16 kernel's launch for ``m`` = B*T*H*W output positions,
+    ``co`` output channels and ``taps`` = Kt*Kh*Kw: the N tile (64 or 96)
+    that computes the fewest columns past Co, the wider on a tie (it
+    gathers each input tile fewer times); then, if that grid has fewer
+    than two blocks per SM, the taps split into as many ranges as bring it
+    to two per SM, at most one range per tap. ``workspace`` counts the f32
+    partials the split writes (splits, M, Co), 0 unsplit."""
+    tile_n = min(_TILE_NS, key=lambda n: (-(-co // n) * n, -n))
+    blocks = -(-m // _TILE_M) * -(-co // tile_n)
+    splits = 1 if blocks >= 2 * _SMS else min(taps, -(-2 * _SMS // blocks))
+    return Plan(tile_n, splits, blocks * splits,
+                splits * m * co if splits > 1 else 0)
+
+
+def tap_ranges(taps: int, splits: int):
+    """The kernel's split of the flat tap index (dt, dh, dw row-major) into
+    ``splits`` contiguous ranges [lo, hi), in order."""
+    return [(i * taps // splits, (i + 1) * taps // splits)
+            for i in range(splits)]
 
 
 def _same_pads(kernel):
@@ -68,12 +104,28 @@ def folded_conv_reference(x5, w, pads):
     return out.permute(0, 2, 3, 4, 1).contiguous()
 
 
+def folded_conv_split_reference(x5, w, pads, splits: int):
+    """Plain version of the split path: the conv over each range of taps
+    (``tap_ranges``) in f32, the partials summed in range order, rounded
+    once to x's dtype."""
+    kt, kh, kw, ci, co = w.shape
+    flat = w.float().reshape(kt * kh * kw, ci, co)
+    total = None
+    for lo, hi in tap_ranges(kt * kh * kw, splits):
+        part_w = torch.zeros_like(flat)
+        part_w[lo:hi] = flat[lo:hi]
+        part = folded_conv_reference(x5.float(), part_w.reshape(w.shape),
+                                     pads)
+        total = part if total is None else total + part
+    return total.to(x5.dtype)
+
+
 def _fn():
     if "conv" not in _FNS:
         from picklebot_tpu_torch.utils.build import load_library
         lib = load_library("folded_conv")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fc_conv_s1.argtypes = [p, p, p] + [i] * 13 + [p]
+        lib.fc_conv_s1.argtypes = [p, p, p] + [i] * 15 + [p, p]
         lib.fc_conv_s1.restype = i
         _FNS["conv"] = lib.fc_conv_s1
     return _FNS["conv"]
@@ -101,7 +153,8 @@ def _check(x5, w, pads):
 
 def _conv(x5, w, pads, count: str):
     """The conv itself, no graph: the kernel on a CUDA tensor (counted
-    under ``count``), the plain version on a CPU tensor."""
+    once under ``count``, the split's sum pass included), the plain
+    version on a CPU tensor."""
     pads = _check(x5, w, pads)
     if x5.device.type == "cpu":
         return folded_conv_reference(x5, w, pads)
@@ -116,11 +169,21 @@ def _conv(x5, w, pads, count: str):
     b, t, h, wd, ci = x5.shape
     kt, kh, kw, _, co = w.shape
     out = torch.empty((b, t, h, wd, co), device=x5.device, dtype=x5.dtype)
+    tile_n, splits, part = 0, 1, None        # f32: one FMA tile, no split
+    if x5.dtype == torch.bfloat16:
+        plan = _plan(b * t * h * wd, co, kt * kh * kw)
+        tile_n, splits = plan.tile_n, plan.splits
+        if plan.workspace:
+            # freed on return: the caching allocator hands it out again only
+            # to work queued behind these kernels on the same stream
+            part = torch.empty(plan.workspace, device=x5.device,
+                               dtype=torch.float32)
     with torch.cuda.device(x5.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _fn()(x5.data_ptr(), w.data_ptr(), out.data_ptr(),
                     _DTYPES[x5.dtype], b, t, h, wd, ci, co, kt, kh, kw,
-                    pads[0][0], pads[1][0], pads[2][0], stream)
+                    pads[0][0], pads[1][0], pads[2][0], tile_n, splits,
+                    None if part is None else part.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"folded conv {count} kernel: launch failed with "
                            f"CUDA error {err}")

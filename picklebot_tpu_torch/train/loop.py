@@ -18,7 +18,6 @@ per-epoch snapshots and the statistics/*.npy artifacts are not written.
 
 from __future__ import annotations
 
-import math
 import os
 import signal
 import threading
@@ -136,6 +135,14 @@ def _pad_val_batch(feats, labels, batch):
     return feats, labels, mask
 
 
+def track_best(best: float, val_loss: float) -> float:
+    """The best validation loss after one more eval, by the JAX loop's rule
+    (``picklebot_tpu/train/loop.py``, the ``val_loss < best_val_loss``
+    update after each eval): a NaN eval (an empty val set) leaves it, and
+    any lower loss replaces it. A run starts from inf."""
+    return val_loss if val_loss < best else best
+
+
 def train(config: Config, max_steps: Optional[int] = None,
           device="cuda") -> dict:
     """Train ``config``'s model on ``device`` (``cuda`` raises without a
@@ -183,6 +190,7 @@ def train(config: Config, max_steps: Optional[int] = None,
     global_step = 0
     train_losses_hist, train_acc_hist, all_losses = [], [], []
     val_losses, val_percent = [], []
+    best_val_loss = float("inf")
     summary = {}
 
     def run_eval():
@@ -242,6 +250,7 @@ def train(config: Config, max_steps: Optional[int] = None,
                 val_loss, val_acc, val_n, val_conf = run_eval()
                 val_losses.append(val_loss)
                 val_percent.append(val_acc)
+                best_val_loss = track_best(best_val_loss, val_loss)
                 summary["val_samples"] = val_n
                 if val_conf is not None:
                     summary["val_confusion"] = val_conf
@@ -272,7 +281,6 @@ def train(config: Config, max_steps: Optional[int] = None,
         writer.close()
         print(f"Model saved to {final_path}")
 
-    finite = [v for v in val_losses if not math.isnan(v)]
     summary.update(
         final_train_loss=train_losses_hist[-1] if train_losses_hist
         else None,
@@ -280,6 +288,7 @@ def train(config: Config, max_steps: Optional[int] = None,
         final_val_accuracy=val_percent[-1] if val_percent else None,
         global_step=global_step, train_losses=all_losses,
         val_losses=list(val_losses),
-        best_val_loss=min(finite) if finite else None,
-        checkpoint=final_path)
+        best_val_loss=best_val_loss if val_losses else None,
+        # early_stop_patience is refused (UNPORTED), so no run stops early
+        stopped_early=False, checkpoint=final_path)
     return summary

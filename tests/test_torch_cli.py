@@ -183,3 +183,84 @@ def test_metrics_writer_and_windowed_average_match_jax(tmp_path):
     vals = np.random.RandomState(0).rand(2345).tolist()
     np.testing.assert_array_equal(port_metrics.windowed_average(vals),
                                   jax_metrics.windowed_average(vals))
+
+
+def _jax_best_val_loss(val_losses):
+    """The JAX loop's summary rule, restated: ``best_val_loss`` starts at
+    ``resume_best = inf`` (``picklebot_tpu/train/loop.py:289``, ``:583``),
+    moves only on an eval that is not NaN and lower than it (``:811-822``;
+    NaN is an empty val set) and is returned as is, or None when no eval
+    ran (``:924-925``)."""
+    best = float("inf")
+    for v in val_losses:
+        if not math.isnan(v) and v < best:
+            best = v
+    return best if val_losses else None
+
+
+class _ScriptedEval:
+    """An eval step whose evals give the scripted mean losses; NaN is an
+    eval that counted no sample, the path an empty val set takes."""
+
+    def __init__(self, losses):
+        self.losses = list(losses)
+
+    def __call__(self, feats, labels, mask):
+        v = self.losses.pop(0)
+        n = 0.0 if math.isnan(v) else float(mask.sum())
+        return {"loss_sum": 0.0 if n == 0 else v * n, "correct": 0.0,
+                "samples": n, "confusion": np.zeros((13, 13))}
+
+
+def _summary_config(tmp_path, epochs):
+    tmp_path.mkdir(exist_ok=True)
+    return load_config(_config(
+        tmp_path, "MobileNetLarge3D", batch_size=2, effective_batch_size=2,
+        synthetic_len=2, synthetic_shape=[4, 32, 32], t_bucket=4,
+        max_frames=4, max_iters=epochs, eval_interval=1))
+
+
+@pytest.mark.parametrize("losses", [
+    [float("nan"), float("nan")], [0.5, float("nan"), 0.4],
+    [0.3, 0.5, float("nan")], [float("nan"), 0.7]])
+def test_summary_best_val_loss_and_stopped_early_follow_jax(
+        tmp_path, monkeypatch, losses):
+    """One eval per epoch (two val clips, one batch) with scripted losses:
+    the summary's ``best_val_loss`` is the JAX loop's tracked best (inf
+    when every eval was NaN, not None), and ``stopped_early`` is False
+    (``early_stop_patience`` is refused, ROADMAP A8)."""
+    from picklebot_tpu_torch.train import loop
+    scripted = _ScriptedEval(losses)
+    monkeypatch.setattr(loop, "make_eval_step", lambda *a, **k: scripted)
+    summary = train(_summary_config(tmp_path, len(losses)), device="cpu")
+    assert scripted.losses == []
+    np.testing.assert_array_equal(summary["val_losses"], losses)
+    assert summary["best_val_loss"] == _jax_best_val_loss(losses)
+    assert summary["best_val_loss"] == min(
+        [v for v in losses if not math.isnan(v)], default=float("inf"))
+    assert summary["stopped_early"] is False
+
+
+def test_summary_on_an_empty_val_set_and_with_no_eval(tmp_path, monkeypatch):
+    """An empty val set gives NaN evals and a best of inf, as in the JAX
+    loop; a run stopped (Ctrl-C) before its first eval gives None."""
+    from picklebot_tpu_torch.train import loop
+    make = loop._make_datasets
+    monkeypatch.setattr(loop, "_make_datasets",
+                        lambda config: (make(config)[0], []))
+    summary = train(_summary_config(tmp_path / "empty", 2), device="cpu")
+    assert [math.isnan(v) for v in summary["val_losses"]] == [True, True]
+    assert summary["best_val_loss"] == float("inf") == _jax_best_val_loss(
+        summary["val_losses"])
+    assert summary["stopped_early"] is False
+
+    def interrupted(*args, **kwargs):
+        def step(*a, **k):
+            raise KeyboardInterrupt
+        return step
+    monkeypatch.setattr(loop, "make_train_step", interrupted)
+    summary = train(_summary_config(tmp_path / "stopped", 2), device="cpu")
+    assert summary["val_losses"] == [] and summary["best_val_loss"] is None
+    assert _jax_best_val_loss([]) is None
+    assert summary["stopped_early"] is False
+    assert loop.track_best(0.5, float("nan")) == 0.5

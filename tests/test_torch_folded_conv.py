@@ -212,3 +212,77 @@ def test_mobilevit_block_keeps_its_keys_and_marks_conv1_conv4():
     assert block.conv1[0].takes_folded_kernel(x)
     assert block.conv4[0].takes_folded_kernel(torch.zeros(1, 2, 4, 4, 96))
     assert not block.conv2[0].takes_folded_kernel(x)
+
+
+# MobileViT-s's conv1/conv4 at bs 8 and 32x224x224 (chip_smoke.py
+# VIT_CONV_STAGES): (M = B*T*H*W, Ci, Co) of the forward; dx swaps Ci, Co
+VIT_S_CONVS = [(8 * 8 * 28 * 28, 96, 96), (8 * 8 * 28 * 28, 192, 96),
+               (8 * 5 * 14 * 14, 128, 128), (8 * 5 * 14 * 14, 256, 128),
+               (8 * 4 * 7 * 7, 160, 160), (8 * 4 * 7 * 7, 320, 160)]
+
+
+@pytest.mark.parametrize("which", ["fwd", "dx"])
+@pytest.mark.parametrize("m,ci,co", VIT_S_CONVS)
+def test_plan_fills_the_card_at_mobilevit_s_shapes(m, ci, co, which):
+    """At each of the 12 launches of a MobileViT-s train microbatch the
+    plan gives at least one block per SM (132), or splits as far as it may
+    (one range per tap); it splits only a grid under two blocks per SM;
+    its workspace holds the f32 partials of its splits."""
+    n, taps = (co if which == "fwd" else ci), 27
+    plan = fc._plan(m, n, taps)
+    assert plan.tile_n in (64, 96)
+    # the N tile that computes the fewest columns past Co, the wider on a
+    # tie (Co 192: two tiles of 96, not three of 64)
+    padded = {t: -(-n // t) * t for t in (64, 96)}
+    assert padded[plan.tile_n] == min(padded.values())
+    assert plan.tile_n == 96 or padded[64] < padded[96]
+    base = -(-m // 128) * -(-n // plan.tile_n)
+    assert plan.blocks == base * plan.splits
+    assert plan.blocks >= 132 or plan.splits == taps
+    assert 1 <= plan.splits <= taps
+    assert (plan.splits == 1) == (base >= 2 * 132)
+    assert plan.workspace == (plan.splits * m * n if plan.splits > 1 else 0)
+    # stage 1 runs unsplit, stages 2 and 3 split (chip_smoke.py checks both
+    # kinds on the card)
+    assert (plan.splits == 1) == (m == 8 * 8 * 28 * 28)
+
+
+@pytest.mark.parametrize("taps,splits", [(27, 1), (27, 3), (27, 7), (9, 4),
+                                         (15, 15), (1, 1)])
+def test_tap_ranges_cover_the_taps_in_order(taps, splits):
+    ranges = fc.tap_ranges(taps, splits)
+    assert len(ranges) == splits and ranges[0][0] == 0
+    assert ranges[-1][1] == taps
+    assert all(lo < hi for lo, hi in ranges)
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+
+
+@pytest.mark.parametrize("shape,co,k,splits", [
+    (GEOMETRIES[0][0], GEOMETRIES[0][1], GEOMETRIES[0][2], 3),
+    (GEOMETRIES[4][0], GEOMETRIES[4][1], GEOMETRIES[4][2], 7),
+    (GEOMETRIES[5][0], GEOMETRIES[5][1], GEOMETRIES[5][2], 27),
+    (GEOMETRIES[1][0], GEOMETRIES[1][1], GEOMETRIES[1][2], 4),
+    (GEOMETRIES[3][0], GEOMETRIES[3][1], GEOMETRIES[3][2], 15)])
+def test_split_plain_model_matches_jax_ref_conv(rng, shape, co, k, splits):
+    """The split path's order in plain PyTorch (partial convs over tap
+    ranges, summed in f32 in range order, rounded once) against the JAX
+    ``_ref_conv``: f32 within 1e-5 of max|ref|; bf16 operands within one
+    bf16 ulp of the output's range of ``_ref_conv`` on the same rounded
+    operands in f32 (the split rounds once, at most half an ulp)."""
+    x, w, pads = _case(rng, shape, co, k)
+    ref = np.asarray(jax_fc._ref_conv(jnp.asarray(x), jnp.asarray(w), pads))
+    got = fc.folded_conv_split_reference(torch.from_numpy(x.copy()),
+                                         torch.from_numpy(w.copy()), pads,
+                                         splits)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
+
+    xb = torch.from_numpy(x.copy()).bfloat16()
+    wb = torch.from_numpy(w.copy()).bfloat16()
+    ref = np.asarray(jax_fc._ref_conv(jnp.asarray(xb.float().numpy()),
+                                      jnp.asarray(wb.float().numpy()), pads))
+    got = fc.folded_conv_split_reference(xb, wb, pads, splits)
+    assert got.dtype == torch.bfloat16
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7)
+    np.testing.assert_allclose(got.float().numpy(), ref, rtol=0, atol=ulp)
