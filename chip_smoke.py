@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py                     # every phase
     python3 chip_smoke.py --only conv          # the conv kernel's rows
+    python3 chip_smoke.py --only flash         # the flash kernels' rows
     python3 chip_smoke.py --only kernels serve # or any of kernels, conv,
-                                               # serve, train, timing
+                                               # flash, serve, train, timing
 
 Phases, in order (each prints JSON lines; any failure exits non-zero; a
 run with --only says on a JSON line which phases it skipped and prints no
@@ -25,15 +26,18 @@ kernels summary):
               kernels at batches past a grid's 65,535 y blocks (fb_main
               with B*T' = 67,200, fb_pool with B = 65,600); the flash
               backward kernels (dQ, dK/dV) against flash_backward_reference
-              at the same shapes; the conv kernel, forward and dx, at
+              at the same shapes (with device times from a trace, the D
+              pass, TFLOP/s, and two more calls bit-equal); the conv
+              kernel, forward and dx, at
               MobileViT-s's six conv1/conv4 geometries (bf16; the plan each
               takes, stage 1 unsplit and stage 3 split over taps), at
               MobileViT-xxs's widths and the per-axis kernel sizes (1,3,3),
               (3,3,1), (1,5,3) (bf16 and f32), and in f32 with TF32 off at
               stage 2; kernel, plain and library times by CUDA events,
-              bounds, TFLOP/s; the HMMA count of the bf16 conv's SASS
-              (cuobjdump) and its ptxas registers and spills (0 HMMA or a
-              spill fails the run)
+              bounds, TFLOP/s; the HMMA count of the SASS (cuobjdump) of
+              the conv and flash libraries and their ptxas registers and
+              spills (0 HMMA or a spill in a bf16 conv, dQ or dK/dV
+              function fails the run; the others are reported)
   4. serve    picklebot_tpu_torch.serve.main on 16 synthetic clips at full
               width from a seeded .pth, for MobileNetLarge3D, MobileViT-s
               ('auto' attention), MobileNetSmall3D and MoViNet-A2: checks
@@ -200,7 +204,7 @@ TRAIN_CUTS = {"data_backend": "synthetic", "synthetic_shape": [32, 224, 224],
               "synthetic_len": 48}
 TRAIN_STEPS = 3
 # what --only can pick; with no --only every phase runs
-PHASES = ("kernels", "conv", "serve", "train", "timing")
+PHASES = ("kernels", "conv", "flash", "serve", "train", "timing")
 
 
 def emit(obj):
@@ -213,6 +217,17 @@ def nvidia_smi_line():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clocks():
+    """The card's SM clock now and its maximum (MHz), as nvidia-smi reads
+    them: device times move with the clock, so rows carry it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60)
+    now, top = out.stdout.strip().splitlines()[0].split(",")
+    return {"sm_mhz": int(now), "sm_max_mhz": int(top)}
 
 
 def time_ms(fn, reps=5):
@@ -301,8 +316,9 @@ def flash_bwd_bound(s, h, n, d, elem, which):
     dK once: 10*N^2*D."""
     tensors, flops = {"dq": (5, 6), "dkv": (6, 8), "pair": (7, 10)}[which]
     nbytes = tensors * s * h * n * d * elem + 2 * s * h * n * 4
-    return roofline(nbytes, flops * s * h * n * n * d,
-                    "bfloat16" if elem == 2 else "float32")
+    flops *= s * h * n * n * d
+    return dict(roofline(nbytes, flops, "bfloat16" if elem == 2
+                         else "float32"), flops=flops)
 
 
 def make_case(shape, k, e, co, dtype, seed):
@@ -582,9 +598,11 @@ def flash_rows(reps):
 def flash_bwd_case(layout, n, dtype, seed, dh=VIT_DHEAD):
     """One flash backward case on MobileViT-s's stage shapes: seeded
     q, k, v (views of one qkv projection) and output gradient, the
-    Function's grads (forward kernel with lse, D, dQ and dK/dV kernels),
-    the plain backward's from the same forward residuals, and per-kernel
-    launchers on the kernels' (S, H, N, D) views for timing."""
+    Function's grads (forward kernel with lse, D, dQ and dK/dV kernels;
+    ``run`` computes them again), the plain backward's from the same
+    forward residuals, and, but for qkv-packed, per-kernel launchers on
+    the kernels' (S, H, N, D) views, the D pass and the kernels' plan, for
+    timing."""
     import torch
     from picklebot_tpu_torch.ops import flash_attention as fa
     h, scale = VIT_HEADS * VIT_DHEAD // dh, dh ** -0.5
@@ -595,24 +613,29 @@ def flash_bwd_case(layout, n, dtype, seed, dh=VIT_DHEAD):
     if layout == "qkvpacked":
         qkv5 = qkv.unflatten(-1, (3, h, dh))
         g5 = g.unflatten(-1, (h, dh))
-        got = torch.autograd.grad(fa.flash_attention_qkvpacked(qkv5), qkv5,
-                                  g5)[0].unbind(-3)
+
+        def run():
+            return [t.transpose(-2, -3) for t in torch.autograd.grad(
+                fa.flash_attention_qkvpacked(qkv5), qkv5, g5)[0].unbind(-3)]
         q, k, v = fa._qkv_split(qkv5.detach())
         out, lse = fa._qkvpacked_forward(qkv5.detach(), scale, True)
         want = fa.flash_backward_reference(q, k, v, out.transpose(-2, -3),
                                            lse, g5.transpose(-2, -3), scale)
-        return dict(got=[t.transpose(-2, -3) for t in got], want=want)
+        return dict(got=run(), want=want, run=run)
     q, k, v = qkv.chunk(3, dim=-1)
     if layout == "packed":
-        got = torch.autograd.grad(fa.flash_attention_packed(q, k, v, h),
-                                  (q, k, v), g)
+        def run():
+            return [fa.split_heads(t, h) for t in torch.autograd.grad(
+                fa.flash_attention_packed(q, k, v, h), (q, k, v), g)]
         with torch.no_grad():
             out, lse = fa.flash_attention_packed(q, k, v, h, with_lse=True)
-        got = [fa.split_heads(t, h) for t in got]
     else:
         q, k, v = (fa.split_heads(t, h) for t in (q, k, v))
         g = fa.split_heads(g, h)
-        got = torch.autograd.grad(fa.flash_attention(q, k, v), (q, k, v), g)
+
+        def run():
+            return torch.autograd.grad(fa.flash_attention(q, k, v),
+                                       (q, k, v), g)
         with torch.no_grad():
             out, lse = fa._heads_forward(q, k, v, scale, True)
     heads = [fa.split_heads(t, h) if layout == "packed" else t
@@ -627,17 +650,30 @@ def flash_bwd_case(layout, n, dtype, seed, dh=VIT_DHEAD):
     def launch(name):
         fa._launch_backward_kernel(name, q4, k4, v4, g4, lse3, dd, *out4,
                                    scale)
-    return dict(got=got, want=want, launch=launch, heads=heads, lse=lse)
+    return dict(got=run(), want=want, run=run, launch=launch, heads=heads,
+                lse=lse, d_pass=lambda: fa._backward_d(o4, g4),
+                plan=fa._backward_plan(q4.shape, q4.dtype))
+
+
+def bitwise_repeatable(c):
+    """Two more backward calls of a case give gradients equal bit for bit
+    to each other (no atomics: the order of every sum is fixed)."""
+    import torch
+    first, second = c["run"](), c["run"]()
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def flash_bwd_rows(reps):
     """The flash backward kernels against ``flash_backward_reference`` at
     MobileViT-s's attention shapes: packed at stage 1 and per head at
-    every stage (bf16, with dQ, dK/dV, plain and library times), qkv-packed
-    at stage 1 (bf16), f32 with TF32 off (packed at stage 1, per head at
-    N=147, a ragged last tile), head dims 32 and 64 (bf16, per head,
+    every stage (bf16, with the plan, dQ, dK/dV and D-pass times by CUDA
+    events and from a trace, plain and library times, TFLOP/s against the
+    pair's bound, and two more calls bit-equal), qkv-packed at stage 1
+    (bf16, bit-equal too), f32 with TF32 off (packed at stage 1, per head
+    at N=147, a ragged last tile), head dims 32 and 64 (bf16, per head,
     N=147). Library: autograd through F.scaled_dot_product_attention on
-    the same tensors, its backward alone."""
+    the same tensors, its backward alone, set against D + dQ + dK/dV."""
     import torch
     import torch.nn.functional as F
     from picklebot_tpu_torch.core.policy import DtypePolicy
@@ -664,17 +700,45 @@ def flash_bwd_rows(reps):
         q, k, v, o, g = c["heads"]
         lib_in = [t.detach().requires_grad_() for t in (q, k, v)]
         lib_out = F.scaled_dot_product_attention(*lib_in, scale=d ** -0.5)
+
+        def lib_backward():
+            torch.autograd.grad(lib_out, lib_in, g, retain_graph=True)
+        calls = {"dq": lambda: c["launch"]("dq"),
+                 "dkv": lambda: c["launch"]("dkv"), "d": c["d_pass"]}
         row = {"entry": layout, "n": n, "dtype": "bfloat16", **errs,
                "err": max(e["err"] for e in errs.values()),
-               "ms_dq": time_ms(lambda: c["launch"]("dq"), reps),
-               "ms_dkv": time_ms(lambda: c["launch"]("dkv"), reps),
+               "plan": c["plan"]._asdict(),
+               "bit_equal_repeat": bitwise_repeatable(c),
+               **{f"ms_{k_}": time_ms(f, reps) for k_, f in calls.items()},
                "plain_ms": time_ms(lambda: fa.flash_backward_reference(
                    q, k, v, o, c["lse"], g, d ** -0.5), reps),
-               "library_ms": time_ms(lambda: torch.autograd.grad(
-                   lib_out, lib_in, g, retain_graph=True), reps)}
+               "library_ms": time_ms(lib_backward, reps),
+               **{f"device_ms_{k_}": device_ms(f, reps)
+                  for k_, f in calls.items()},
+               "library_device_ms": device_ms(lib_backward, reps),
+               "clocks_after_traces": sm_clocks()}
+        if not row["bit_equal_repeat"]:
+            raise AssertionError(f"flash bwd {layout} n={n}: two backward "
+                                 "calls differ")
         for which in ("dq", "dkv", "pair"):
             row[f"bound_{which}"] = flash_bwd_bound(VIT_SEQS, h, n, d, 2,
                                                     which)
+        # the whole backward (D pass, dQ, dK/dV) against SDPA's, and the
+        # pair's rate on the function's 10*N^2*D FLOPs per head
+        for pre in ("", "device_"):
+            parts = [row[f"{pre}ms_{k_}"] for k_ in calls]
+            lib = row[f"library_{pre}ms"]
+            whole = None if None in parts else sum(parts)
+            pair = None if None in parts else parts[0] + parts[1]
+            row[f"{pre}ms_backward"] = whole
+            row[f"{pre}x_library"] = (None if whole is None or lib is None
+                                      else whole / lib)
+            row[f"{pre}tflops_pair"] = (
+                None if pair is None
+                else row["bound_pair"]["flops"] / pair / 1e9)
+            row[f"{pre}x_bound_pair"] = (
+                None if pair is None
+                else pair / row["bound_pair"]["bound_ms"])
         emit({"phase": "kernels", "kernel": "flash_bwd", **row})
         rows.append(row)
         del c, q, k, v, o, g, lib_in, lib_out
@@ -682,6 +746,9 @@ def flash_bwd_rows(reps):
     c = flash_bwd_case("qkvpacked", VIT_ATTENTION[0][0], torch.bfloat16,
                        650)
     qkv_errs = held("flash bwd qkv-packed bf16 n=784", c["got"], c["want"])
+    if not bitwise_repeatable(c):
+        raise AssertionError("flash bwd qkv-packed: two backward calls "
+                             "differ")
     f32 = {}
     with DtypePolicy.f32().precision():
         for layout, n in (("packed", VIT_ATTENTION[0][0]), ("heads", 147)):
@@ -871,11 +938,12 @@ def conv_rows(reps):
     return rows
 
 
-def conv_sass_check(lib_path):
-    """The bf16 conv on the tensor cores: the count of HMMA instructions in
-    each conv function's SASS (``cuobjdump -sass`` of the built library),
-    and ptxas's registers and spill bytes for each from the build log. Fails
-    if a bf16 conv function has no HMMA or spills."""
+def sass_check(lib_path, kernel, must):
+    """Tensor cores and registers of one built library: the count of HMMA
+    instructions in each function's SASS (``cuobjdump -sass``), and
+    ptxas's registers and spill bytes for each from the build log. Fails
+    if a function whose name holds one of ``must`` (the bf16 ones) has no
+    HMMA or spills, or if there is none; the others are reported only."""
     import re
     import shutil
     tool = shutil.which("cuobjdump") or os.path.join(
@@ -904,16 +972,15 @@ def conv_sass_check(lib_path):
         regs = re.search(r"Used (\d+) registers", line)
         if name and regs:
             ptxas[name]["registers"] = int(regs.group(1))
-    bf16 = {n: dict(hmma=c, **ptxas.get(n, {})) for n, c in hmma.items()
-            if "conv_bf16_kernel" in n}
-    out = {"phase": "kernels", "kernel": "folded_conv", "sass": {
-        n: dict(hmma=c, **ptxas.get(n, {})) for n, c in hmma.items()}}
-    emit(out)
-    if not bf16 or any(v["hmma"] == 0 or v.get("spill_stores", 1)
-                       or v.get("spill_loads", 1) for v in bf16.values()):
-        raise AssertionError(f"bf16 conv functions {bf16}: each needs HMMA "
+    funcs = {n: dict(hmma=c, **ptxas.get(n, {})) for n, c in hmma.items()}
+    checked = {n: v for n, v in funcs.items() if any(m in n for m in must)}
+    emit({"phase": "kernels", "kernel": kernel, "sass": funcs})
+    if not checked or any(v["hmma"] == 0 or v.get("spill_stores", 1)
+                          or v.get("spill_loads", 1)
+                          for v in checked.values()):
+        raise AssertionError(f"{kernel} functions {checked}: each needs HMMA "
                              "instructions and no spills")
-    return out["sass"]
+    return funcs
 
 
 def fused_large_batch_cases():
@@ -1388,7 +1455,8 @@ def profile_run(name, fn, phase):
     # in the fused bottleneck's recompute backward) runs kernels that
     # overlap in time, so classes also get the union of their spans
     classes = {"flash_attention": ("fwd_kernel<",),
-               "flash_attention_bwd": ("dq_kernel<", "dkv_kernel<"),
+               "flash_attention_bwd": ("dq_bf16_kernel<", "dkv_bf16_kernel<",
+                                       "dq_f32_kernel<", "dkv_f32_kernel<"),
                "fused_bottleneck": ("main_kernel<", "pool_kernel<"),
                "folded_conv": ("conv_f32_kernel", "conv_bf16_kernel<",
                                "conv_split_sum_kernel"),
@@ -1785,7 +1853,9 @@ def flash_bwd_entry(name, kernel, line, rows, entry, launches_by_run,
     by_n = {r["n"]: r for r in rows if r["entry"] == entry}
 
     def total(f):
-        return sum(f(by_n[n]) * c for n, c in per_step.items())
+        vals = [f(by_n[n]) for n in per_step]
+        return None if None in vals else sum(
+            v * c for v, c in zip(vals, per_step.values()))
     parts = ("dq",) if kernel == "dq" else ("dk", "dv")
     return {"name": name, "route": "cuda",
             "source": "picklebot_tpu_torch/csrc/flash_attention.cu",
@@ -1803,6 +1873,8 @@ def flash_bwd_entry(name, kernel, line, rows, entry, launches_by_run,
                 lambda r: r[f"bound_{kernel}"]["ops_ms"])
                 else "operations"),
             "library_ms": total(lambda r: r["library_ms"]),
+            "device_ms": total(lambda r: r[f"device_ms_{kernel}"]),
+            "library_device_ms": total(lambda r: r["library_device_ms"]),
             "plain_and_library_cover": "the whole backward",
             "per_microbatch": {str(n): c for n, c in per_step.items()}}
 
@@ -1816,7 +1888,8 @@ def parse_args(argv):
         "--only", nargs="+", choices=PHASES,
         help="run only these phases after the device and build phases: "
         "kernels (every kernel against its plain version), conv (the conv "
-        "kernel's rows alone), serve, train (the CLI runs, the attention "
+        "kernel's rows alone), flash (the flash kernels' rows alone, "
+        "forward and backward), serve, train (the CLI runs, the attention "
         "backends, the gradients against the plain path), timing (the "
         "train-step timings). A partial run prints no kernels summary")
     return ap.parse_args(argv)
@@ -1857,16 +1930,25 @@ def main(argv=None):
 
     seconds = {"build": time.perf_counter() - t0,
                "profiler_warmup": warm_s}
-    rows = fused_per = large_batch = flash = flash_bwd = conv = sass = None
+    rows = fused_per = large_batch = flash = flash_bwd = conv = None
     large = vit = small = movinet = None
+    sass = {}
     t0 = time.perf_counter()
     if selected("kernels"):
         rows, fused_per, large_batch, flash, flash_bwd, conv = \
             phase_kernels()
-    elif "conv" in only:
+    if "conv" in only and not selected("kernels"):
         conv = conv_rows(reps=5)
+    if "flash" in only and not selected("kernels"):
+        flash, flash_bwd = flash_rows(reps=5), flash_bwd_rows(reps=5)
     if selected("kernels") or "conv" in only:
-        sass = conv_sass_check(libs["folded_conv"])
+        sass["folded_conv"] = sass_check(libs["folded_conv"], "folded_conv",
+                                         ("conv_bf16_kernel",))
+    if selected("kernels") or "flash" in only:
+        sass["flash_attention"] = sass_check(
+            libs["flash_attention"], "flash_attention",
+            ("dq_bf16_kernel", "dkv_bf16_kernel"))
+    if sass:
         seconds["kernels"] = time.perf_counter() - t0
     if selected("serve") or selected("train") or selected("timing"):
         feats, x = clip_batch()
@@ -1944,7 +2026,7 @@ def main(argv=None):
               "train": train}
     if only:
         skipped = [p for p in PHASES if not selected(p)
-                   and not (p == "conv" and selected("kernels"))]
+                   and not (p in ("conv", "flash") and selected("kernels"))]
         emit({"phase": "skipped", "phases": skipped,
               "note": "a partial run (--only): no summary line"})
         with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_only.json"),

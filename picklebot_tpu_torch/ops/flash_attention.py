@@ -24,7 +24,10 @@ and an input requires grad, each entry runs a ``torch.autograd.Function``:
 its forward is the kernel with the f32 logsumexp, its backward computes
 D = rowsum(dO * O) in f32 in torch, then launches the dQ and the dK/dV
 kernels (on the CPU: the plain forward with lse and
-``flash_backward_reference``). Otherwise the forward runs alone, without
+``flash_backward_reference``); in bf16 those run on the tensor cores and
+copy rows in 16-byte pieces, so a view whose rows do not start on 16
+bytes is refused (``_rows_aligned16``), never copied. Otherwise the
+forward runs alone, without
 the lse. Numerics follow the Pallas kernels: f32 scores and softmax
 statistics, P rounded to v's dtype before the PV product (to dO's before
 dV), dS to the inputs' dtype before dQ and dK, f32 accumulation, outputs
@@ -35,6 +38,7 @@ the product accumulated in f32) with split and merged heads.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 
@@ -46,6 +50,7 @@ LAUNCHES = {"packed": 0, "heads": 0, "dq": 0, "dkv": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64)
+_BWD_ROWS = 64          # query (dQ) or key (dK/dV) rows per backward block
 _FNS = {}
 
 
@@ -222,26 +227,67 @@ def _backward_d(o4, g4):
     return (g4.float() * o4.float()).sum(-1).contiguous()
 
 
+BackwardPlan = collections.namedtuple("BackwardPlan",
+                                      "kernel threads rows blocks")
+
+
+def _backward_plan(shape, dtype) -> BackwardPlan:
+    """How ``csrc/flash_attention.cu`` runs the dQ and the dK/dV kernel on
+    (S, H, N, D): bf16 on the tensor cores (``mma``: 4 warps of 16 rows),
+    f32 on the FMA kernels (``fma``: one thread per row); either way one
+    block per (sequence, head, 64-row tile)."""
+    s, h, n, d = shape
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"flash attention kernel: head dim {d} (takes "
+                         f"{_HEAD_DIMS})")
+    blocks = s * h * -(-n // _BWD_ROWS)
+    if blocks > 2 ** 31 - 1:
+        raise ValueError(f"flash attention backward: {blocks} blocks, more "
+                         "than a grid takes")
+    return BackwardPlan("mma" if dtype == torch.bfloat16 else "fma",
+                        128 if dtype == torch.bfloat16 else 64, _BWD_ROWS,
+                        blocks)
+
+
+def _rows_aligned16(ptrs, strides, sizes) -> bool:
+    """True when every row start of bf16 (S, H, N, D) views lies on 16
+    bytes, as the bf16 backward kernels copy rows in 16-byte pieces: each
+    base pointer of ``ptrs`` a multiple of 16, and each of the views' (s,
+    h, n) ``strides`` (``_strides``) on an axis longer than 1 (``sizes``:
+    S, H, N) a multiple of 8 elements."""
+    return not (any(p % 16 for p in ptrs) or any(
+        st % 8 for i, st in enumerate(strides) if sizes[i % 3] > 1))
+
+
 def _launch_backward_kernel(name, q4, k4, v4, g4, lse3, dd, dq4, dk4, dv4,
                             scale: float):
     """One launch of the ``dq`` or the ``dkv`` kernel on (S, H, N, D)
     views (g4 the gradient of the forward's output, dq4/dk4/dv4 the
-    outputs to fill) with the contiguous f32 (S, H, N) lse3 and dd."""
+    outputs to fill) with the contiguous f32 (S, H, N) lse3 and dd. bf16
+    views must pass ``_rows_aligned16``: an unaligned one is refused, not
+    copied."""
     s, h, n, d = q4.shape
     for t in (lse3, dd):
         if t.dtype != torch.float32 or t.shape != (s, h, n) or \
                 not t.is_contiguous():
             raise ValueError("flash attention backward: lse and D must be "
                              f"contiguous f32 {(s, h, n)} tensors")
-    strides = _strides((q4, k4, v4, g4, dq4, dk4, dv4)) + list(
-        dd.stride()[:2])
-    arr = (ctypes.c_longlong * 23)(*strides)
+    views = (q4, k4, v4, g4, dq4, dk4, dv4)
+    plan = _backward_plan(q4.shape, q4.dtype)
+    strides = _strides(views)
+    ptrs = [t.data_ptr() for t in views]
+    if plan.kernel == "mma" and not _rows_aligned16(ptrs, strides,
+                                                    (s, h, n)):
+        raise ValueError("flash attention backward: a bf16 view's rows do "
+                         "not start on 16 bytes (the kernels copy rows in "
+                         "16-byte pieces); pass tensors whose base and "
+                         "strides are multiples of 8 elements")
+    arr = (ctypes.c_longlong * 23)(*strides, *dd.stride()[:2])
     with torch.cuda.device(q4.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _fn(name)(*(t.data_ptr() for t in (q4, k4, v4, g4, lse3, dd,
-                                                  dq4, dk4, dv4)),
-                        _DTYPES[q4.dtype], s, h, n, d, float(scale),
-                        ctypes.addressof(arr), stream)
+        err = _fn(name)(*ptrs[:4], lse3.data_ptr(), dd.data_ptr(),
+                        *ptrs[4:], _DTYPES[q4.dtype], s, h, n, d,
+                        float(scale), ctypes.addressof(arr), stream)
     _raise_on(err, name)
     LAUNCHES[name] += 1
 
@@ -330,6 +376,40 @@ def _needs_graph(*ts) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
+# The backward kernels' arguments for each Function: (S, H, N, D) views of
+# q, k, v, the forward's output and its gradient, the (S, H, N) lse, then
+# views of the new gradient tensors that the kernels fill; returned beside
+# those tensors.
+
+def _packed_backward_views(q, k, v, out, lse, g, heads):
+    grads = [torch.empty(q.shape, device=q.device, dtype=q.dtype)
+             for _ in range(3)]
+    views = _packed_views(heads, q, k, v, out, g.contiguous(), *grads)
+    return grads, (*views[:5], lse.view(views[0].shape[:3]), *views[5:])
+
+
+def _heads_backward_views(q, k, v, out, lse, g):
+    q4 = _as_seq_head(q)
+    grads = [torch.empty(q.shape, device=q.device, dtype=q.dtype)
+             for _ in range(3)]
+    return grads, (q4, _as_seq_head(k), _as_seq_head(v), out.view(q4.shape),
+                   g.contiguous().view(q4.shape), lse.view(q4.shape[:3]),
+                   *(t.view(q4.shape) for t in grads))
+
+
+def _qkvpacked_backward_views(qkv, out, lse, g):
+    """The gradient is one (..., N, 3, H, D) tensor, written in place
+    through its q, k and v views."""
+    q4, k4, v4 = (_as_seq_head(t) for t in _qkv_split(qkv))
+    s, h, n, d = q4.shape
+    dqkv = torch.empty(qkv.shape, device=qkv.device, dtype=qkv.dtype)
+    grads = [dqkv.view(s, n, 3, h, d).select(2, i).transpose(1, 2)
+             for i in range(3)]
+    heads = [t.view(s, n, h, d).transpose(1, 2)
+             for t in (out, g.contiguous())]
+    return dqkv, (q4, k4, v4, *heads, lse.view(s, h, n), *grads)
+
+
 class FlashPackedFn(torch.autograd.Function):
     """``flash_attention_packed`` under autograd: the forward kernel with
     lse, then D, the dQ and the dK/dV kernels."""
@@ -350,11 +430,8 @@ class FlashPackedFn(torch.autograd.Function):
                 *(split_heads(t, heads) for t in (q, k, v, out)), lse,
                 split_heads(g, heads), scale)
             return (*(merge_heads(t) for t in grads), None, None)
-        grads = [torch.empty(q.shape, device=q.device, dtype=q.dtype)
-                 for _ in range(3)]
-        views = _packed_views(heads, q, k, v, out, g.contiguous(), *grads)
-        _launch_backward(*views[:5], lse.view(views[0].shape[:3]),
-                         *views[5:], scale)
+        grads, views = _packed_backward_views(q, k, v, out, lse, g, heads)
+        _launch_backward(*views, scale)
         return (*grads, None, None)
 
 
@@ -374,13 +451,8 @@ class FlashFn(torch.autograd.Function):
         if q.device.type == "cpu":
             return (*flash_backward_reference(q, k, v, out, lse, g,
                                               ctx.scale), None)
-        q4 = _as_seq_head(q)
-        grads = [torch.empty(q.shape, device=q.device, dtype=q.dtype)
-                 for _ in range(3)]
-        _launch_backward(q4, _as_seq_head(k), _as_seq_head(v),
-                         out.view(q4.shape), g.contiguous().view(q4.shape),
-                         lse.view(q4.shape[:3]),
-                         *(t.view(q4.shape) for t in grads), ctx.scale)
+        grads, views = _heads_backward_views(q, k, v, out, lse, g)
+        _launch_backward(*views, ctx.scale)
         return (*grads, None)
 
 
@@ -405,15 +477,8 @@ class FlashQKVPackedFn(torch.autograd.Function):
                 g.transpose(-2, -3), ctx.scale)
             return torch.stack([t.transpose(-2, -3) for t in grads],
                                dim=-3), None
-        q4, k4, v4 = (_as_seq_head(t) for t in _qkv_split(qkv))
-        s, h, n, d = q4.shape
-        dqkv = torch.empty(qkv.shape, device=qkv.device, dtype=qkv.dtype)
-        grads = [dqkv.view(s, n, 3, h, d).select(2, i).transpose(1, 2)
-                 for i in range(3)]
-        heads = [t.view(s, n, h, d).transpose(1, 2)
-                 for t in (out, g.contiguous())]
-        _launch_backward(q4, k4, v4, *heads, lse.view(s, h, n), *grads,
-                         ctx.scale)
+        dqkv, views = _qkvpacked_backward_views(qkv, out, lse, g)
+        _launch_backward(*views, ctx.scale)
         return dqkv, None
 
 
