@@ -19,10 +19,12 @@ kernels summary):
               the fused bottleneck at the 15 MobileNetLarge3D, the 7
               MobileViT-s and the 11 MobileNetSmall3D bottleneck geometries
               of a bs-8, 32x224x224 clip batch (bf16), plus one f32 case
-              with TF32 off; the flash attention kernel, packed with and
-              without lse at MobileViT-s's stage-1 shape, per head at its
-              three stages' shapes and qkv-packed at stage 1 (bf16), f32
-              cases with TF32 off, and head dims 32 and 64; the fused
+              with TF32 off; the flash forward kernel, packed without lse
+              at MobileViT-s's three stages' shapes and with lse at stage
+              1, per head at the three and at N=100, qkv-packed at stage 1
+              (bf16; each with its plan, device times from a trace, the SM
+              clock, TFLOP/s and two more calls bit-equal), f32 cases
+              with TF32 off, and head dims 32 and 64; the fused
               kernels at batches past a grid's 65,535 y blocks (fb_main
               with B*T' = 67,200, fb_pool with B = 65,600); the flash
               backward kernels (dQ, dK/dV) against flash_backward_reference
@@ -36,8 +38,12 @@ kernels summary):
               stage 2; kernel, plain and library times by CUDA events,
               bounds, TFLOP/s; the HMMA count of the SASS (cuobjdump) of
               the conv and flash libraries and their ptxas registers and
-              spills (0 HMMA or a spill in a bf16 conv, dQ or dK/dV
-              function fails the run; the others are reported)
+              spills (0 HMMA or a spill in a bf16 conv, flash forward, dQ
+              or dK/dV function fails the run; the others are reported);
+              and 'auto''s threshold swept: at N = 32 ... 784 the
+              head-packed kernel against the plain sdpa route, forward and
+              forward + backward, by CUDA events and device time, and the
+              smallest N from which the kernel route wins
   4. serve    picklebot_tpu_torch.serve.main on 16 synthetic clips at full
               width from a seeded .pth, for MobileNetLarge3D, MobileViT-s
               ('auto' attention), MobileNetSmall3D and MoViNet-A2: checks
@@ -47,7 +53,8 @@ kernels summary):
               batch's logits against the plain path on the card; then the
               predict throughput at bs 8, the forward's device time (for
               MobileViT-s also with conv1/conv4 on the library conv, as
-              before the conv kernel), and a torch.profiler trace of one
+              before the conv kernel, and at each of 'auto''s threshold
+              routes), and a torch.profiler trace of one
               forward (device time by kernel, idle share; a trace without
               device events fails the run)
   5. pallas   one MobileViT-s forward each with attention_backend
@@ -66,7 +73,8 @@ kernels summary):
               on one bs-8 batch of MobileViT-s and MobileNetLarge3D; train
               step time, samples/s, forward and backward split, peak
               memory, and a torch.profiler trace of one train step per
-              model (MobileViT-s also with conv1/conv4 on the library conv)
+              model (MobileViT-s also with conv1/conv4 on the library
+              conv, and at each of 'auto''s threshold routes)
   7. summary  {"kernels": [...]}, the card line, and last
               {"ok": true, "device": ...}
 Per-shape numbers also go to chiprun_out/chip_smoke.json. Without CUDA it
@@ -138,6 +146,17 @@ SMALL_GEOMETRIES = [
 # positions) of N tokens, 8 heads of 16, per stage: (N, layers)
 VIT_ATTENTION = [(784, 2), (147, 4), (32, 3)]
 VIT_SEQS, VIT_HEADS, VIT_DHEAD = 64, 8, 16
+# the layers of those that 'auto' sends to the head-packed kernel (N at
+# least the port's _PACKED_MIN_SEQ), per stage N; every exact flash launch
+# count of a MobileViT-s run follows from it, and the run fails if the
+# port's threshold routes otherwise
+VIT_PACKED = {784: 2, 147: 4, 32: 3}
+# 'auto''s threshold: N swept for it on the card, and the thresholds of
+# MobileViT-s's four routes (no stage, stage 1, stages 1-2, every stage on
+# the packed kernel), timed in turns in the serve and timing phases; 512
+# is the JAX package's (a TPU measurement)
+SWEEP_N = (32, 64, 147, 256, 512, 784)
+PACKED_MIN_SEQ_TURNS = (785, 512, 147, 32)
 # MobileViT-s's dense stride-1 3x3x3 convs at the same input, per stage:
 # the MobileViTBlock's activation (B, T, H, W) and channel width C; conv1
 # is C -> C on it, conv4 2C -> C. The serve phase checks that the model
@@ -246,6 +265,12 @@ def time_ms(fn, reps=5):
     return start.elapsed_time(end) / reps
 
 
+def median_ms(fn, reps, runs=5):
+    """The median of ``runs`` ``time_ms`` readings: a call whose event
+    time is the host's moves from reading to reading."""
+    return sorted(time_ms(fn, reps) for _ in range(runs))[runs // 2]
+
+
 def device_ms(fn, reps=5, tries=3):
     """Mean device time (ms) per call of the kernels ``fn`` launches, from
     a torch.profiler trace of ``reps`` calls after one warm-up call: their
@@ -304,8 +329,9 @@ def flash_bound(s, h, n, d, elem, with_lse):
     (and the f32 lse) written once; 4*N^2*D useful FLOPs per (sequence,
     head), QK^T and PV."""
     nbytes = 4 * s * h * n * d * elem + (s * h * n * 4 if with_lse else 0)
-    return roofline(nbytes, 4 * s * h * n * n * d,
-                    "bfloat16" if elem == 2 else "float32")
+    flops = 4 * s * h * n * n * d
+    return dict(roofline(nbytes, flops, "bfloat16" if elem == 2
+                         else "float32"), flops=flops)
 
 
 def flash_bwd_bound(s, h, n, d, elem, which):
@@ -468,12 +494,18 @@ def seeded_qkv(n, dtype, seed):
 
 
 def flash_rows(reps):
-    """The flash kernel against its plain versions at MobileViT-s's
-    shapes: packed with and without lse at stage 1, per head at every
-    stage and qkv-packed at stage 1 (bf16); in f32 with TF32 off, packed
-    with lse at stage 1, per head and qkv-packed at N=147 (the last key
-    tile ragged); per head at head dims 32 and 64 (bf16). Rows carry the
-    entry point and the ``LAUNCHES`` key it counts under."""
+    """The flash forward kernel against its plain versions at MobileViT-s's
+    shapes (bf16): packed without lse at every stage (N=147 and 32 ragged)
+    and with lse at stage 1, per head at every stage and at N=100 (a
+    ragged tile inside a warp's rows), qkv-packed at stage 1. Each row:
+    the check, two more calls bit-equal, the plan, kernel, plain and SDPA
+    times by CUDA events, kernel and SDPA device times from a trace (at
+    N=147 and 32 a call's host work outlasts its kernel), the SM clock
+    after the traces, TFLOP/s on the 4*N^2*D FLOPs per head, and the
+    ratios to bound and SDPA. Then f32 with TF32 off (packed with lse at
+    stage 1, per head and qkv-packed at N=147, the last key tile ragged),
+    and per head at head dims 32 and 64 (bf16). Rows carry the entry
+    point and the ``LAUNCHES`` key it counts under."""
     import torch
     import torch.nn.functional as F
     from picklebot_tpu_torch.core.policy import DtypePolicy
@@ -486,73 +518,87 @@ def flash_rows(reps):
     def sdpa_lib(q4, k4, v4):      # yardstick only; the port never calls it
         return F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
 
-    def record(row, fn, plain, lib, elem, with_lse, n):
-        row.update(flash_bound(VIT_SEQS, h, n, d, elem, with_lse),
-                   ms=time_ms(fn, reps), plain_ms=time_ms(plain, reps),
-                   library_ms=time_ms(lib, reps))
-        emit({"phase": "kernels", **row})
-        rows.append(row)
-
     def heads_of(qkv5):            # (S, N, 3, H, D) -> q, k, v (S, H, N, D)
         return [qkv5.select(-3, i).transpose(-2, -3) for i in range(3)]
 
-    # packed, stage 1, bf16, without and with lse
-    n = VIT_ATTENTION[0][0]
-    q, k, v = seeded_qkv(n, torch.bfloat16, seed=200).chunk(3, dim=-1)
-    split = [fa.split_heads(t, h) for t in (q, k, v)]
-    want, want_lse = fa.flash_attention_packed_reference(q, k, v, h,
-                                                         with_lse=True)
-    got = fa.flash_attention_packed(q, k, v, h)
-    got2, lse = fa.flash_attention_packed(q, k, v, h, with_lse=True)
-    torch.cuda.synchronize()
-    held = check_bf16_flash("flash packed bf16", got, want)
-    held2 = check_bf16_flash("flash packed bf16 (lse run)", got2, want)
-    lse_err = check_close("flash packed bf16 lse", lse, want_lse, 0.0,
-                          LSE_ABS_TOL)[0]
-    record({"entry": "packed", "kernel": "packed", "n": n,
-            "dtype": "bfloat16", "lse": False, **held},
-           lambda: fa.flash_attention_packed(q, k, v, h),
-           lambda: fa.flash_attention_packed_reference(q, k, v, h),
-           lambda: sdpa_lib(*split), 2, False, n)
-    record({"entry": "packed", "kernel": "packed", "n": n,
-            "dtype": "bfloat16", "lse": True, **held2, "lse_err": lse_err},
-           lambda: fa.flash_attention_packed(q, k, v, h, with_lse=True),
-           lambda: fa.flash_attention_packed_reference(q, k, v, h,
-                                                       with_lse=True),
-           lambda: sdpa_lib(*split), 2, True, n)
-    del q, k, v, split, want, want_lse, got, got2, lse
+    def held(row, fn, plain, lib, with_lse):
+        """Check one bf16 case against its plain version, then time it."""
+        name = f"flash {row['entry']} bf16 n={row['n']}" + (
+            " (lse)" if with_lse else "")
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        if with_lse:
+            row["lse_err"] = check_close(f"{name} lse", got[1], want[1],
+                                         0.0, LSE_ABS_TOL)[0]
+            got, want = got[0], want[0]
+        if got.shape != want.shape:
+            raise AssertionError(f"{name}: shape {tuple(got.shape)}")
+        row.update(check_bf16_flash(name, got, want))
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        row["bit_equal_repeat"] = all(
+            torch.equal(a, b) for a, b in zip(
+                first if with_lse else [first],
+                second if with_lse else [second]))
+        if not row["bit_equal_repeat"]:
+            raise AssertionError(f"{name}: two calls differ")
+        n = row["n"]
+        row.update(flash_bound(VIT_SEQS, h, n, d, 2, with_lse),
+                   plan=fa._forward_plan((VIT_SEQS, h, n, d),
+                                         torch.bfloat16)._asdict(),
+                   ms=time_ms(fn, reps), plain_ms=time_ms(plain, reps),
+                   library_ms=time_ms(lib, reps),
+                   device_ms=device_ms(fn, reps),
+                   library_device_ms=device_ms(lib, reps),
+                   clocks_after_traces=sm_clocks())
+        for pre in ("", "device_"):
+            t, t_lib = row[f"{pre}ms"], row[f"library_{pre}ms"]
+            row[f"{pre}tflops"] = (None if t is None
+                                   else row["flops"] / t / 1e9)
+            row[f"{pre}x_bound"] = None if t is None else t / row["bound_ms"]
+            row[f"{pre}x_library"] = (None if t is None or t_lib is None
+                                      else t / t_lib)
+        emit({"phase": "kernels", "flash": "fwd", **row})
+        rows.append(row)
 
-    # per head, every stage, bf16, on the split heads' views
-    for n, _ in VIT_ATTENTION:
+    # packed, bf16: without lse at every stage, with lse at stage 1
+    for n, with_lse in [(n_, False) for n_, _ in VIT_ATTENTION] + [
+            (VIT_ATTENTION[0][0], True)]:
+        q, k, v = seeded_qkv(n, torch.bfloat16, seed=200 + n).chunk(3, -1)
+        split = [fa.split_heads(t, h) for t in (q, k, v)]
+        held({"entry": "packed", "kernel": "packed", "n": n,
+              "dtype": "bfloat16", "lse": with_lse},
+             lambda: fa.flash_attention_packed(q, k, v, h,
+                                               with_lse=with_lse),
+             lambda: fa.flash_attention_packed_reference(
+                 q, k, v, h, with_lse=with_lse),
+             lambda: sdpa_lib(*split), with_lse)
+        del q, k, v, split
+
+    # per head, every stage and N=100, bf16, on the split heads' views
+    for n in sorted({n_ for n_, _ in VIT_ATTENTION} | {100}, reverse=True):
         split = [fa.split_heads(t, h) for t in seeded_qkv(
             n, torch.bfloat16, seed=300 + n).chunk(3, dim=-1)]
-        want = fa.flash_attention_reference(*split)
-        got = fa.flash_attention(*split)
-        torch.cuda.synchronize()
-        held = check_bf16_flash(f"flash per-head bf16 n={n}", got, want)
-        record({"entry": "heads", "kernel": "heads", "n": n,
-                "dtype": "bfloat16", "lse": False, **held},
-               lambda: fa.flash_attention(*split),
-               lambda: fa.flash_attention_reference(*split),
-               lambda: sdpa_lib(*split), 2, False, n)
-        del split, want, got
+        held({"entry": "heads", "kernel": "heads", "n": n,
+              "dtype": "bfloat16", "lse": False},
+             lambda: fa.flash_attention(*split),
+             lambda: fa.flash_attention_reference(*split),
+             lambda: sdpa_lib(*split), False)
+        del split
 
     # qkv-packed ('pallas_packed'), stage 1, bf16: q, k, v read in place
     # from the (64, N, 3, H, D) view of one projection output
     n = VIT_ATTENTION[0][0]
     qkv5 = seeded_qkv(n, torch.bfloat16, seed=350).unflatten(-1, (3, h, d))
-    want = fa.flash_attention_qkvpacked_reference(qkv5)
-    got = fa.flash_attention_qkvpacked(qkv5)
-    torch.cuda.synchronize()
-    if tuple(got.shape) != (VIT_SEQS, n, h, d):
-        raise AssertionError(f"flash qkv-packed: shape {tuple(got.shape)}")
-    held = check_bf16_flash("flash qkv-packed bf16", got, want)
-    record({"entry": "qkvpacked", "kernel": "heads", "n": n,
-            "dtype": "bfloat16", "lse": False, **held},
-           lambda: fa.flash_attention_qkvpacked(qkv5),
-           lambda: fa.flash_attention_qkvpacked_reference(qkv5),
-           lambda: sdpa_lib(*heads_of(qkv5)), 2, False, n)
-    del qkv5, want, got
+    if tuple(fa.flash_attention_qkvpacked(qkv5).shape) != (VIT_SEQS, n, h,
+                                                           d):
+        raise AssertionError("flash qkv-packed: output shape")
+    held({"entry": "qkvpacked", "kernel": "heads", "n": n,
+          "dtype": "bfloat16", "lse": False},
+         lambda: fa.flash_attention_qkvpacked(qkv5),
+         lambda: fa.flash_attention_qkvpacked_reference(qkv5),
+         lambda: sdpa_lib(*heads_of(qkv5)), False)
+    del qkv5
 
     # f32, TF32 off
     f32 = {}
@@ -593,6 +639,74 @@ def flash_rows(reps):
     emit({"phase": "kernels", "head_dims_case": "flash per-head n=147",
           **dims})
     return rows
+
+
+def packed_route_sweep(reps):
+    """'auto''s two routes at each N of SWEEP_N (64 sequences x 8 heads x
+    16, bf16, q, k and v the chunks of one qkv projection output, as
+    MultiHeadAttention hands them on): the head-packed kernel
+    (``flash_attention_packed``) against the plain route (``sdpa`` on split
+    heads, merged), the forward alone and forward + backward
+    (``FlashPackedFn`` against autograd through ``sdpa``), each by CUDA
+    events and by device time from a trace. The two routes' outputs are
+    held against each other at the flash bf16 bound; their input grads'
+    distance is reported. Event times are the median of five readings
+    (at small N they are the host's). The pick: the smallest swept N from
+    which the kernel route is faster in all four times, at that N and at
+    every larger one (None if at none)."""
+    import torch
+    from picklebot_tpu_torch.ops import attention
+    from picklebot_tpu_torch.ops import flash_attention as fa
+
+    h, d = VIT_HEADS, VIT_DHEAD
+    scale = d ** -0.5
+    rows = []
+    for n in SWEEP_N:
+        qkv = seeded_qkv(n, torch.bfloat16, seed=900 + n)
+        g = torch.randn(VIT_SEQS, n, h * d, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(
+                            901 + n)).to(torch.bfloat16)
+        leaf = qkv.detach().requires_grad_()
+
+        def kernel_route(t):
+            return fa.flash_attention_packed(*t.chunk(3, dim=-1), h, scale)
+
+        def sdpa_route(t):
+            q, k, v = (fa.split_heads(x, h) for x in t.chunk(3, dim=-1))
+            return fa.merge_heads(fa.sdpa(q, k, v, scale))
+
+        def fwd_bwd(route):
+            return lambda: torch.autograd.grad(route(leaf), leaf, g)[0]
+        calls = {"kernel_fwd": lambda: kernel_route(qkv),
+                 "sdpa_fwd": lambda: sdpa_route(qkv),
+                 "kernel_fwd_bwd": fwd_bwd(kernel_route),
+                 "sdpa_fwd_bwd": fwd_bwd(sdpa_route)}
+        row = {"n": n, "out": check_bf16_flash(
+            f"sweep n={n} packed kernel against sdpa route",
+            calls["kernel_fwd"](), calls["sdpa_fwd"]())}
+        dq_k, dq_s = calls["kernel_fwd_bwd"](), calls["sdpa_fwd_bwd"]()
+        row["grad_rms_err_over_rms"] = ((dq_k.float() - dq_s.float()).pow(
+            2).mean().sqrt() / dq_s.float().pow(2).mean().sqrt()).item()
+        for name, fn in calls.items():
+            row[f"ms_{name}"] = median_ms(fn, reps)
+            row[f"device_ms_{name}"] = device_ms(fn, reps)
+        times = [(row[f"{pre}ms_kernel_{w}"], row[f"{pre}ms_sdpa_{w}"])
+                 for pre in ("", "device_") for w in ("fwd", "fwd_bwd")]
+        row["kernel_faster"] = all(None not in t and t[0] < t[1]
+                                   for t in times)
+        emit({"phase": "kernels", "sweep": "packed_min_seq", **row})
+        rows.append(row)
+        del qkv, g, leaf, dq_k, dq_s
+    pick = None
+    for row in reversed(rows):
+        if not row["kernel_faster"]:
+            break
+        pick = row["n"]
+    out = {"phase": "kernels", "sweep": "packed_min_seq", "n": list(SWEEP_N),
+           "pick": pick, "port_packed_min_seq": attention._PACKED_MIN_SEQ,
+           "clocks": sm_clocks()}
+    emit(out)
+    return dict(out, rows=rows)
 
 
 def flash_bwd_case(layout, n, dtype, seed, dh=VIT_DHEAD):
@@ -666,9 +780,10 @@ def bitwise_repeatable(c):
 
 def flash_bwd_rows(reps):
     """The flash backward kernels against ``flash_backward_reference`` at
-    MobileViT-s's attention shapes: packed at stage 1 and per head at
-    every stage (bf16, with the plan, dQ, dK/dV and D-pass times by CUDA
-    events and from a trace, plain and library times, TFLOP/s against the
+    MobileViT-s's attention shapes: packed at the stages 'auto' sends to
+    the packed kernel (VIT_PACKED) and per head at every stage (bf16, with
+    the plan, dQ, dK/dV and D-pass times by CUDA events and from a trace,
+    plain and library times, TFLOP/s against the
     pair's bound, and two more calls bit-equal), qkv-packed at stage 1
     (bf16, bit-equal too), f32 with TF32 off (packed at stage 1, per head
     at N=147, a ragged last tile), head dims 32 and 64 (bf16, per head,
@@ -693,7 +808,7 @@ def flash_bwd_rows(reps):
         torch.cuda.synchronize()
         return out
 
-    for layout, n, seed in [("packed", VIT_ATTENTION[0][0], 600)] + [
+    for layout, n, seed in [("packed", n_, 600 + n_) for n_ in VIT_PACKED] + [
             ("heads", n_, 610 + n_) for n_, _ in VIT_ATTENTION]:
         c = flash_bwd_case(layout, n, torch.bfloat16, seed)
         errs = held(f"flash bwd {layout} bf16 n={n}", c["got"], c["want"])
@@ -1026,8 +1141,14 @@ def phase_kernels():
         rows += model_rows
     fused_f32_case()
     large_batch = fused_large_batch_cases()
-    return (rows, fused_per, large_batch, flash_rows(reps=5),
-            flash_bwd_rows(reps=5), conv_rows(reps=5))
+    return (rows, fused_per, large_batch, *flash_phase(),
+            conv_rows(reps=5))
+
+
+def flash_phase():
+    """The flash forward and backward rows, then 'auto''s sweep."""
+    return (flash_rows(reps=5), flash_bwd_rows(reps=5),
+            packed_route_sweep(reps=10))
 
 
 def calibrate_batchnorm(model, x):
@@ -1090,6 +1211,32 @@ def conv_on_library():
         yield
     finally:
         Conv3d.takes_folded_kernel = saved
+
+
+@contextlib.contextmanager
+def packed_min_seq(n):
+    """Within the block 'auto' sends sequences of at least ``n`` tokens to
+    the head-packed kernel (the port's ``_PACKED_MIN_SEQ`` patched): to
+    time MobileViT-s at each of the threshold's routes inside one run; the
+    port has no such switch."""
+    from picklebot_tpu_torch.ops import attention
+    saved = attention._PACKED_MIN_SEQ
+    attention._PACKED_MIN_SEQ = n
+    try:
+        yield
+    finally:
+        attention._PACKED_MIN_SEQ = saved
+
+
+def by_packed_min_seq(measure):
+    """``measure()`` at each threshold of PACKED_MIN_SEQ_TURNS in turn,
+    then once more at the port's own."""
+    out = {}
+    for n in PACKED_MIN_SEQ_TURNS:
+        with packed_min_seq(n):
+            out[str(n)] = measure()
+    out["port_again"] = measure()
+    return out
 
 
 def zero_counters(counters):
@@ -1328,9 +1475,10 @@ def phase_serve_mobilevit(gpu_line, feats, x):
                              f"the geometries the kernel was held at")
     launches, serve_s, n_preds, evaluated = serve_run(cfg, model,
                                                       all_counters())
-    # 2 batches x (7 bottlenecks without SE; 2 stage-1 layers at N=784;
-    # conv1 and conv4 of 3 blocks)
-    want = launches_wanted(fused={"main": 14}, flash={"packed": 4},
+    # 2 batches x (7 bottlenecks without SE; the VIT_PACKED attention
+    # layers; conv1 and conv4 of 3 blocks)
+    want = launches_wanted(fused={"main": 14},
+                           flash={"packed": 2 * sum(VIT_PACKED.values())},
                            conv={"fwd": 12})
     if launches != want:
         raise AssertionError(f"MobileViT serve: launches {launches}, "
@@ -1346,6 +1494,9 @@ def phase_serve_mobilevit(gpu_line, feats, x):
     result = {"phase": "serve", "model": "MobileViT-s",
               **throughput(model, feats, x), "card": gpu_line,
               "launches": launches}
+    with torch.inference_mode():
+        result["forward_ms_by_packed_min_seq"] = by_packed_min_seq(
+            lambda: time_ms(lambda: model(x), reps=10))
     emit(result)
     result["profile"] = phase_profile("MobileViT-s", model, x)
     for backend in ("pallas", "pallas_packed"):
@@ -1454,7 +1605,7 @@ def profile_run(name, fn, phase):
     # cuDNN's generic grouped-conv weight gradient (the depthwise convs'
     # in the fused bottleneck's recompute backward) runs kernels that
     # overlap in time, so classes also get the union of their spans
-    classes = {"flash_attention": ("fwd_kernel<",),
+    classes = {"flash_attention": ("fwd_bf16_kernel<", "fwd_f32_kernel<"),
                "flash_attention_bwd": ("dq_bf16_kernel<", "dkv_bf16_kernel<",
                                        "dq_f32_kernel<", "dkv_f32_kernel<"),
                "fused_bottleneck": ("main_kernel<", "pool_kernel<"),
@@ -1694,14 +1845,16 @@ def grads_against_plain(label, make_model, x, labels):
 
 
 def phase_train_timing(label, make_model, feats, x, labels, gpu_line,
-                       conv_before_after=False):
+                       vit_turns=False):
     """Train step (bs 8, one microbatch, uint8 host batch -> optimizer
     update) by host clock after a synchronize, samples/s, peak device
     memory over those steps; forward (train mode, with a graph),
     forward+backward and the optimizer update alone by CUDA events; a
-    trace of one train step. ``conv_before_after``: the step, forward and
-    backward once more with conv1/conv4 on the library conv (as before
-    the conv kernel), then the step again with the kernel."""
+    trace of one train step. ``vit_turns`` (MobileViT-s): the step,
+    forward and backward once more with conv1/conv4 on the library conv
+    (as before the conv kernel), then the step again with the kernel; and
+    the step and forward+backward at each of 'auto''s threshold routes
+    (``by_packed_min_seq``)."""
     import torch
     from picklebot_tpu_torch.ops.linear import dropout_rng
     from picklebot_tpu_torch.train.losses import cross_entropy
@@ -1745,7 +1898,7 @@ def phase_train_timing(label, make_model, feats, x, labels, gpu_line,
            "samples_per_s": 8e3 / step_ms, "forward_ms": fwd_ms,
            "backward_ms": fwd_bwd_ms - fwd_ms, "optimizer_ms": opt_ms,
            "peak_memory_bytes": peak, "card": gpu_line}
-    if conv_before_after:
+    if vit_turns:
         with conv_on_library():
             lib_fwd = time_ms(forward, reps)
             res["conv_on_library"] = {
@@ -1753,6 +1906,10 @@ def phase_train_timing(label, make_model, feats, x, labels, gpu_line,
                 "backward_ms": time_ms(lambda: forward().backward(), reps)
                 - lib_fwd}
         res["train_step_ms_again"] = timed_steps()
+        res["by_packed_min_seq"] = by_packed_min_seq(lambda: {
+            "train_step_ms": timed_steps(),
+            "forward_backward_ms": time_ms(lambda: forward().backward(),
+                                           reps)})
     emit(res)
     res["profile"] = profile_run(f"{label} train step",
                                  lambda: step(0, f, lb), "train_profile")
@@ -1840,6 +1997,9 @@ def flash_entry(name, kernel, line, rows, launches_by_run, per_forward):
                                     "library_ms")},
            "bound_by": ("bytes" if total("bytes_ms") >= total("ops_ms")
                         else "operations"),
+           **{k: (None if any(by_n[n][k] is None for n in per_forward)
+                  else total(k))
+              for k in ("device_ms", "library_device_ms")},
            "per_forward": {str(n): c for n, c in per_forward.items()}}
     return out
 
@@ -1930,24 +2090,32 @@ def main(argv=None):
 
     seconds = {"build": time.perf_counter() - t0,
                "profiler_warmup": warm_s}
-    rows = fused_per = large_batch = flash = flash_bwd = conv = None
+    from picklebot_tpu_torch.ops import attention
+    routed = {n: layers for n, layers in VIT_ATTENTION
+              if n >= attention._PACKED_MIN_SEQ}
+    if routed != VIT_PACKED:
+        raise AssertionError(f"'auto' at _PACKED_MIN_SEQ = "
+                             f"{attention._PACKED_MIN_SEQ} sends {routed} "
+                             f"to the packed kernel; VIT_PACKED says "
+                             f"{VIT_PACKED}")
+    rows = fused_per = large_batch = flash = flash_bwd = sweep = conv = None
     large = vit = small = movinet = None
     sass = {}
     t0 = time.perf_counter()
     if selected("kernels"):
-        rows, fused_per, large_batch, flash, flash_bwd, conv = \
+        rows, fused_per, large_batch, flash, flash_bwd, sweep, conv = \
             phase_kernels()
     if "conv" in only and not selected("kernels"):
         conv = conv_rows(reps=5)
     if "flash" in only and not selected("kernels"):
-        flash, flash_bwd = flash_rows(reps=5), flash_bwd_rows(reps=5)
+        flash, flash_bwd, sweep = flash_phase()
     if selected("kernels") or "conv" in only:
         sass["folded_conv"] = sass_check(libs["folded_conv"], "folded_conv",
                                          ("conv_bf16_kernel",))
     if selected("kernels") or "flash" in only:
         sass["flash_attention"] = sass_check(
             libs["flash_attention"], "flash_attention",
-            ("dq_bf16_kernel", "dkv_bf16_kernel"))
+            ("fwd_bf16_kernel", "dq_bf16_kernel", "dkv_bf16_kernel"))
     if sass:
         seconds["kernels"] = time.perf_counter() - t0
     if selected("serve") or selected("train") or selected("timing"):
@@ -1977,12 +2145,14 @@ def main(argv=None):
     train = {}
     if selected("train"):
         # per train microbatch (forward and backward) and per eval batch
+        packed = sum(VIT_PACKED.values())
         cli_runs = [
             ("MobileViT-s", "mobilevit_s.json",
              launches_wanted(fused={"main": 7},
-                             flash={"packed": 2, "dq": 2, "dkv": 2},
+                             flash={"packed": packed, "dq": packed,
+                                    "dkv": packed},
                              conv={"fwd": 6, "dx": 6}),
-             launches_wanted(fused={"main": 7}, flash={"packed": 2},
+             launches_wanted(fused={"main": 7}, flash={"packed": packed},
                              conv={"fwd": 6})),
             ("MobileNetLarge3D", "mobilenet_large_50k.json",
              *[launches_wanted(fused={"pool": 8, "main": 15})] * 2),
@@ -2007,7 +2177,7 @@ def main(argv=None):
         train["timing"] = {
             label: phase_train_timing(
                 label, make, feats, x, labels, gpu_line,
-                conv_before_after=label == "MobileViT-s")
+                vit_turns=label == "MobileViT-s")
             for label, make in (("MobileViT-s", mobilevit_s),
                                 ("MobileNetLarge3D", large3d),
                                 ("MobileNetSmall3D", small3d),
@@ -2020,7 +2190,8 @@ def main(argv=None):
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     record = {"card": gpu_line, "seconds": seconds, "sass": sass,
               "geometries": rows, "large_batch": large_batch, "flash": flash,
-              "flash_bwd": flash_bwd, "folded_conv": conv,
+              "flash_bwd": flash_bwd, "packed_min_seq_sweep": sweep,
+              "folded_conv": conv,
               "serve": {"MobileNetLarge3D": large, "MobileViT-s": vit,
                         "MobileNetSmall3D": small, "MoViNetA2": movinet},
               "train": train}
@@ -2069,22 +2240,24 @@ def main(argv=None):
                     train["backends"][b]["launches"]["conv"]
                     for b in ("pallas", "pallas_packed")}}
     tpu = "picklebot_tpu/ops/pallas/"
-    stage1 = {VIT_ATTENTION[0][0]: VIT_ATTENTION[0][1]}
     kernels = [
         fused_entry("pool", 86, fused_per, runs),
         fused_entry("main", 103, fused_per, runs),
         flash_entry("flash_packed_fwd", "packed",
-                    f"{tpu}flash_packed.py:122", flash, flash_runs, stage1),
+                    f"{tpu}flash_packed.py:122", flash, flash_runs,
+                    VIT_PACKED),
         flash_entry("flash_fwd", "heads", f"{tpu}flash_attention.py:47",
                     flash, flash_runs, dict(VIT_ATTENTION)),
         flash_bwd_entry("flash_packed_bwd_dq", "dq",
                         f"{tpu}flash_packed.py:271", flash_bwd, "packed",
                         {"train_MobileViT-s":
-                         train["MobileViT-s"]["launches"]["flash"]}, stage1),
+                         train["MobileViT-s"]["launches"]["flash"]},
+                        VIT_PACKED),
         flash_bwd_entry("flash_packed_bwd_dkv", "dkv",
                         f"{tpu}flash_packed.py:304", flash_bwd, "packed",
                         {"train_MobileViT-s":
-                         train["MobileViT-s"]["launches"]["flash"]}, stage1),
+                         train["MobileViT-s"]["launches"]["flash"]},
+                        VIT_PACKED),
         flash_bwd_entry("flash_bwd_dq", "dq", f"{tpu}flash_attention.py:146",
                         flash_bwd, "heads", heads_bwd_runs,
                         dict(VIT_ATTENTION)),

@@ -16,35 +16,76 @@
 // from the fused qkv projection, token stride 3*H*D) and the per-head
 // layout (..., H, N, D).
 //
-// What bounds it on an H100 (3.35 TB/s, 989 TFLOP/s bf16): the function
-// must read Q, K, V and write O once, 4*S*H*N*D elements, and does
-// 4*S*H*N^2*D useful FLOPs (QK^T and PV). At MobileViT-s's stage 1
-// (S=64 sequences, H=8, N=784, D=16, bf16) that is 51 MB (15.3 us) against
-// 2.0e10 FLOPs (20.3 us), so the bound is operations, about 20 us.
-//
-// Design. A first version that is right and simple: one block of kBQ = 64
-// threads per (sequence, head, 64-query tile), one thread per query row.
-// The thread keeps its query row, D f32 accumulators and the running max
-// and sum in registers. K/V tiles of kBK = 64 rows are staged in shared
-// memory as f32; every thread of the block reads the same K/V element at
-// once (a broadcast, no bank conflicts). Per tile the thread computes its
-// scores in f32 (times scale) into a shared (kBK, kBQ) score tile, takes
-// the tile max, rescales, and adds p_j * v_j with p_j rounded to V's dtype
-// first, as the Pallas kernel rounds P before its PV product. The output
-// is acc / l, cast at the end. A ragged N is handled by loop bounds (the
-// last tile's key loops stop at N, rows past N store nothing), with no
-// padding copies and no masked scores. Scores live in shared memory, not
-// in a register array, so the key loops need not unroll fully: that keeps
-// the registers per thread and the build time low (a register array of
-// scores forces every key loop to unroll, and nvcc then takes over a
-// minute for the six instantiations). Products are FMA loops on
-// CUDA cores: no tensor cores (mma.sync, wgmma) and no TMA yet, so the
-// kernel sits far above its operations bound.
-//
 // Layouts: element (s, h, n, d) of q, k, v, o lies at
 // s*stride_s + h*stride_h + n*stride_n + d (stride 1 along d); lse (s, h, n)
 // at s*lse_s + h*lse_h + n. q, k, v and o share one dtype: float (dtype 0)
 // or bf16 (dtype 1). D is 16, 32 or 64.
+//
+// The forward (FlashAttention-2's, as the Pallas kernels compute it): f32
+// scores times scale, an online softmax with the running max m and sum l
+// per query row in f32, P rounded to V's dtype before the PV product
+// (unnormalised), l summed from the unrounded f32 P, f32 accumulation, the
+// output acc / l cast once, and with lse requested lse = m + ln(l) in
+// natural-log units (the backward kernels read it so). Keys past N count
+// as the Pallas kernels' masked scores (p = 0).
+//
+// What bounds the forward on an H100 (3.35 TB/s, 989 TFLOP/s bf16): the
+// function must read Q, K, V and write O once, 4*S*H*N*D elements, and
+// does 4*S*H*N^2*D useful FLOPs (QK^T and PV). At MobileViT-s's stage 1
+// (S=64 sequences, H=8, N=784, D=16, bf16) that is 51 MB (15.3 us) against
+// 2.0e10 FLOPs (20.3 us). But it also takes one exponential per score,
+// 64*8*784^2 = 3.15e8, and the SFU does 16 per clock per SM (3.9e12/s over
+// 132 SMs at 1.83 GHz): 81 us. At D=16 the exponentials bound it, not the
+// products or the bytes.
+//
+// bf16 (fwd_bf16_kernel): 128 threads, 4 warps of 16 query rows, one block
+// per (sequence, head, 64-query tile). Each warp keeps its Q rows as mma A
+// fragments in registers for the whole loop. K and V stream through
+// shared memory in 64-row bf16 tiles (padded rows, two cp.async stages, as
+// the backward's). At D = 16 and 32 a tile is taken in two passes of 32
+// keys, which halves the score accumulators: 71 and 95 registers, where one
+// 64-key pass took 80 at D=16 with spills and 127 at D=32; at D = 64 in one
+// pass of 64 keys (161 registers), as two passes made ptxas stop at 128
+// and spill. Per pass: S = Q K^T on mma.sync m16n8k16 (K
+// rows are the column-major B operand: plain ldmatrix), scaled by
+// scale*log2(e); the row max over the four lanes that share a row (two
+// __shfl_xor_sync), the accumulators and this lane's part of l rescaled by
+// alpha = 2^(m_old - m_new); P = ex2.approx(s - m), one SFU op per score,
+// added to l in f32, then rounded to bf16 in registers as the A fragment
+// of O += P V (V read with ldmatrix.trans; P never touches shared
+// memory). The four lanes' parts of l are summed once, at the end.
+// The running max starts at kNegInf (-1e30), not -inf, so the first
+// pass's alpha is 2^(-1e30 - m) = 0 and (-inf) - (-inf) never appears.
+// Ragged N: cp.async zero-fills K and V rows past N, and a zero K row
+// would give a score of 0, not a masked one, so in the last tile a key
+// past N gets s = kNegInf before the max (p = 0), and a pass whose keys
+// all lie past N is skipped; a query row past N is
+// computed on zero Q but neither stored nor given an lse, and a warp whose
+// rows all lie past N only helps with the copies. Without lse (the
+// inference path, as _fwd_kernel_nolse) nothing else is stored. Loads and
+// stores are 16 and 4 bytes wide, so bf16 views whose row starts are not
+// 16-byte aligned are refused (cudaErrorInvalidValue; the wrapper refuses
+// them first).
+//   What still holds it back: at stage 1 it takes about 2.3x the SFU's
+// time for its exponentials. Neither the ex2 pipe alone nor the issue
+// rate explains that: rounding P on the integer pipe (freeing the
+// conversion pipe) made it 25% slower, and 32 fewer instructions a pass
+// (no accumulator clears, the scale folded into the exponent's FFMA) 4%
+// slower. Left is the chain inside each warp, S -> max -> two shuffles ->
+// ex2 -> pack -> PV, with 7 blocks (28 warps) an SM at D=16: the next
+// pass's S is not issued before this pass's softmax (software pipelining
+// across passes, more rows per warp, wgmma with TMA are later work). At
+// N = 147 and 32 the grid is too short to fill the card and the Python
+// wrapper's host work outlasts the kernel.
+//
+// f32 (fwd_f32_kernel) stays on the FP32 pipe: TF32 tensor cores would
+// fail the f32 checks (2e-4 of max|ref|, lse within 1e-3). One block of
+// kBQ = 64 threads per (sequence, head, 64-query tile), one thread per
+// query row, which keeps its row, D f32 accumulators and the running max
+// and sum in registers; K/V tiles of kBK = 64 rows staged in shared memory
+// as f32 (a broadcast read), the scores of a tile in a shared (kBK, kBQ)
+// tile, FMA loops, expf. A ragged N is loop bounds (the last tile's key
+// loops stop at N, rows past N store nothing).
 //
 // The backward (FlashAttention-2's algorithm, as the Pallas pair runs it):
 // with P = exp(scale * Q K^T - lse), dP = dO V^T, D = rowsum(dO * O) (f32,
@@ -129,26 +170,159 @@
 
 namespace {
 
-constexpr int kBQ = 64;                 // query rows (threads) per block
-constexpr int kBK = 64;                 // key/value rows per shared tile
+constexpr int kBQ = 64;                 // query rows (threads) per f32 block
+constexpr int kBK = 64;                 // key/value rows per f32 shared tile
 constexpr float kNegInf = -1e30f;       // as the Pallas kernels' _NEG_INF
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float v) {
-  return __float2bfloat16(v);
-}
 
 struct Strides {
   long long s, h, n;
 };
+
+// ---------------------------------------------------------------------------
+// bf16 building blocks: mma.sync tensor cores, cp.async, ex2
+// ---------------------------------------------------------------------------
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kMmaThreads = 128;        // 4 warps of 16 rows
+constexpr int kTile = 64;               // rows per block and per streamed tile
+static_assert(kTile == kMmaThreads / 32 * 16, "16 rows per warp");
+static_assert(kTile == kBQ && kTile == kBK, "one 64-row tiling");
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; with valid false nothing is read and the 16
+// bytes are zero
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x on the SFU (ex2.approx.ftz: one instruction; 2^-inf is +0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two f32 values rounded to bf16 in one register, lo in the low half (the
+// lower column of an mma fragment)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The warp's rows [r0, r0 + 16) of an (N, D) operand as mma A fragments,
+// one per 16 columns, read straight from device memory (once per block):
+// lane (g, t) = (lane / 4, lane % 4) holds rows g and g + 8, columns 2t,
+// 2t + 1 and 2t + 8, 2t + 9. Rows past N are zero.
+template <int D>
+__device__ __forceinline__ void load_a(uint32_t (&f)[D / 16][4],
+                                       const bf16* base, long long stride,
+                                       int r0, int n, int lane) {
+  const int ra = r0 + (lane >> 2), rb = ra + 8, c = 2 * (lane & 3);
+  const unsigned* pa =
+      reinterpret_cast<const unsigned*>(base + ra * stride + c);
+  const unsigned* pb =
+      reinterpret_cast<const unsigned*>(base + rb * stride + c);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    f[kk][0] = ra < n ? __ldg(pa + 8 * kk) : 0u;
+    f[kk][1] = rb < n ? __ldg(pb + 8 * kk) : 0u;
+    f[kk][2] = ra < n ? __ldg(pa + 8 * kk + 4) : 0u;
+    f[kk][3] = rb < n ? __ldg(pb + 8 * kk + 4) : 0u;
+  }
+}
+
+// Rows [r0, r0 + 64) of an (N, D) operand into a padded shared tile by
+// 16-byte cp.async (every thread of the block takes its share); rows past N
+// are zero-filled.
+template <int D>
+__device__ __forceinline__ void copy_tile(bf16 (*dst)[D + 8],
+                                          const bf16* src, long long stride,
+                                          int r0, int n) {
+  constexpr int kChunks = D / 8;        // 16-byte chunks per row
+  static_assert(kTile * kChunks % kMmaThreads == 0, "whole rounds");
+#pragma unroll
+  for (int i = 0; i < kTile * kChunks / kMmaThreads; ++i) {
+    const int c = threadIdx.x + i * kMmaThreads;
+    const int r = c / kChunks, col = (c % kChunks) * 8;
+    const bool ok = r0 + r < n;
+    cp_async16(smem_addr(&dst[r][col]),
+               ok ? src + (r0 + r) * stride + col : src, ok);
+  }
+}
+
+// The accumulators of 16 columns (two n8 tiles j and j + 1) rounded to bf16
+// as the A fragment of a k16 step: rows g and g + 8, columns 2t, 2t + 1 of
+// each tile.
+__device__ __forceinline__ void pack_a(uint32_t (&f)[4], const float (&lo)[4],
+                                       const float (&hi)[4]) {
+  f[0] = pack_bf16(lo[0], lo[1]);
+  f[1] = pack_bf16(lo[2], lo[3]);
+  f[2] = pack_bf16(hi[0], hi[1]);
+  f[3] = pack_bf16(hi[2], hi[3]);
+}
+
+// Stores rows g and g + 8 (of the warp's rows from r0) of a (16, D)
+// accumulator, times mul, as bf16 pairs; rows past N are not stored.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* base, long long stride,
+                                           const float (&acc)[D / 8][4],
+                                           float mul, int r0, int n,
+                                           int lane) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + (lane >> 2) + 8 * i;
+    if (row >= n) continue;
+    bf16* out = base + row * stride + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
+          __floats2bfloat162_rn(acc[j][2 * i] * mul, acc[j][2 * i + 1] * mul);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
 
 struct Args {
   const void* q;
@@ -158,30 +332,32 @@ struct Args {
   float* lse;                           // null: no lse output
   Strides qs, ks, vs, os;
   long long lse_s, lse_h;
-  int S, H, N, n_qt;
+  int S, H, N, n_t;                     // n_t: 64-row tiles of N
   float scale;
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kBQ) fwd_kernel(Args a) {
+// f32: one block per (sequence, head, 64-query tile), one thread per query
+// row, FMA loops.
+template <int D>
+__global__ void __launch_bounds__(kBQ) fwd_f32_kernel(Args a) {
   __shared__ __align__(16) float k_tile[kBK][D];
   __shared__ __align__(16) float v_tile[kBK][D];
   __shared__ float s_tile[kBK][kBQ];
 
-  const int qt = blockIdx.x % a.n_qt;
-  const int sh = blockIdx.x / a.n_qt;
+  const int qt = blockIdx.x % a.n_t;
+  const int sh = blockIdx.x / a.n_t;
   const int h = sh % a.H, s = sh / a.H;
   const int row = qt * kBQ + threadIdx.x;
   const bool active = row < a.N;
 
-  const T* q = static_cast<const T*>(a.q) + s * a.qs.s + h * a.qs.h;
-  const T* k = static_cast<const T*>(a.k) + s * a.ks.s + h * a.ks.h;
-  const T* v = static_cast<const T*>(a.v) + s * a.vs.s + h * a.vs.h;
+  const float* q = static_cast<const float*>(a.q) + s * a.qs.s + h * a.qs.h;
+  const float* k = static_cast<const float*>(a.k) + s * a.ks.s + h * a.ks.h;
+  const float* v = static_cast<const float*>(a.v) + s * a.vs.s + h * a.vs.h;
 
   float qr[D], acc[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    qr[d] = active ? to_f(q[row * a.qs.n + d]) : 0.f;
+    qr[d] = active ? q[row * a.qs.n + d] : 0.f;
     acc[d] = 0.f;
   }
   float m = kNegInf, l = 0.f;
@@ -191,8 +367,8 @@ __global__ void __launch_bounds__(kBQ) fwd_kernel(Args a) {
     __syncthreads();                    // previous tile done with smem
     for (int idx = threadIdx.x; idx < nk * D; idx += kBQ) {
       const int r = idx / D, d = idx % D;
-      k_tile[r][d] = to_f(k[(k0 + r) * a.ks.n + d]);
-      v_tile[r][d] = to_f(v[(k0 + r) * a.vs.n + d]);
+      k_tile[r][d] = k[(k0 + r) * a.ks.n + d];
+      v_tile[r][d] = v[(k0 + r) * a.vs.n + d];
     }
     __syncthreads();
 
@@ -217,37 +393,187 @@ __global__ void __launch_bounds__(kBQ) fwd_kernel(Args a) {
     for (int j = 0; j < nk; ++j) {
       const float p = expf(s_tile[j][threadIdx.x] - m_new);
       l_tile += p;
-      // P in V's dtype for the PV product; the sum l stays f32
-      const float pr = to_f(from_f<T>(p));
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(pr, v_tile[j][d], acc[d]);
+      for (int d = 0; d < D; ++d) acc[d] = fmaf(p, v_tile[j][d], acc[d]);
     }
     l = l * alpha + l_tile;
     m = m_new;
   }
 
   if (!active) return;
-  T* o = static_cast<T*>(a.o) + s * a.os.s + h * a.os.h + row * a.os.n;
+  float* o =
+      static_cast<float*>(a.o) + s * a.os.s + h * a.os.h + row * a.os.n;
   const float inv_l = 1.f / l;
 #pragma unroll
-  for (int d = 0; d < D; ++d) o[d] = from_f<T>(acc[d] * inv_l);
+  for (int d = 0; d < D; ++d) o[d] = acc[d] * inv_l;
   if (a.lse != nullptr)
     a.lse[s * a.lse_s + h * a.lse_h + row] = m + logf(l);
 }
 
-template <typename T>
-int launch(const Args& a, int D, cudaStream_t stream) {
-  const long long blocks = static_cast<long long>(a.n_qt) * a.H * a.S;
+// bf16: one block per (sequence, head, 64-query tile); warp w owns queries
+// [16w, 16w + 16) of it: O_i = sum_j round(p_ij) v_j / l_i, with the running
+// max m_i (in log2 units) and sum l_i of the online softmax.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads) fwd_bf16_kernel(Args a) {
+  constexpr int kP = D + 8;               // bf16 per shared row (16 B pad)
+  constexpr int kSub = D == 64 ? 64 : 32;  // keys per pass over a tile
+  constexpr int NT = kSub / 8;            // n8 score tiles per pass
+  __shared__ __align__(16) bf16 k_s[2][kTile][kP];
+  __shared__ __align__(16) bf16 v_s[2][kTile][kP];
+
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int qt = blockIdx.x % a.n_t;
+  const int sh = blockIdx.x / a.n_t;
+  const int h = sh % a.H, s = sh / a.H;
+  const int r0 = qt * kTile + (threadIdx.x >> 5) * 16;
+  const bool busy = r0 < a.N;             // else the warp only copies
+
+  const bf16* q = static_cast<const bf16*>(a.q) + s * a.qs.s + h * a.qs.h;
+  const bf16* k = static_cast<const bf16*>(a.k) + s * a.ks.s + h * a.ks.h;
+  const bf16* v = static_cast<const bf16*>(a.v) + s * a.vs.s + h * a.vs.h;
+
+  uint32_t qf[D / 16][4];
+  load_a<D>(qf, q, a.qs.n, r0, a.N, lane);
+  const float scale2 = a.scale * kLog2e;
+  // rows g and g + 8: the running max (shared by the row's four lanes) and
+  // this lane's part of the running sum (its 16 of each tile's 64 keys)
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[j][r] = 0.f;
+
+  copy_tile<D>(k_s[0], k, a.ks.n, 0, a.N);
+  copy_tile<D>(v_s[0], v, a.vs.n, 0, a.N);
+  cp_async_commit();
+  for (int it = 0; it < a.n_t; ++it) {
+    cp_async_wait<0>();                   // this tile has landed ...
+    __syncthreads();                      // ... for every thread, and the
+                                          // other stage is no longer read
+    if (it + 1 < a.n_t) {
+      copy_tile<D>(k_s[(it + 1) & 1], k, a.ks.n, (it + 1) * kTile, a.N);
+      copy_tile<D>(v_s[(it + 1) & 1], v, a.vs.n, (it + 1) * kTile, a.N);
+    }
+    cp_async_commit();
+    if (!busy) continue;
+    const uint32_t kb = smem_addr(&k_s[it & 1][0][0]);
+    const uint32_t vb = smem_addr(&v_s[it & 1][0][0]);
+#pragma unroll
+    for (int c0 = 0; c0 < kTile; c0 += kSub) {
+      const int keys_left = a.N - (it * kTile + c0);
+      if (keys_left <= 0) break;          // the rest of the tile is past N
+      // S = Q K^T: key rows of the tile are the B operand
+      float sc[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) sc[j][r] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+        for (int p = 0; p < NT / 2; ++p) {
+          const int row = c0 + 16 * p + (lane & 7) + ((lane >> 4) << 3);
+          uint32_t b[4];
+          ldmatrix_x4(b, kb + (row * kP + 16 * kk + ((lane >> 3) & 1) * 8) * 2);
+          mma_bf16(sc[2 * p], qf[kk], b[0], b[1]);
+          mma_bf16(sc[2 * p + 1], qf[kk], b[2], b[3]);
+        }
+      }
+      // scores in log2 units; a key past N is masked before the max
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) sc[j][r] *= scale2;
+      if (keys_left < kSub) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            if (8 * j + 2 * t + (r & 1) >= keys_left) sc[j][r] = kNegInf;
+      }
+      // the rows' new max over the quad; alpha rescales once per pass
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) mx[r >> 1] = fmaxf(mx[r >> 1], sc[j][r]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float alpha = ex2(m[i] - mx[i]);
+        l[i] *= alpha;
+        m[i] = mx[i];
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          acc[j][2 * i] *= alpha;
+          acc[j][2 * i + 1] *= alpha;
+        }
+      }
+      // P in f32 into l, in place of S
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float p = ex2(sc[j][r] - m[r >> 1]);
+          l[r >> 1] += p;
+          sc[j][r] = p;
+        }
+      // O += round(P) V: P repacked in registers, V read transposed
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk) {
+        uint32_t af[4];
+        pack_a(af, sc[2 * kk], sc[2 * kk + 1]);
+#pragma unroll
+        for (int p = 0; p < D / 16; ++p) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, vb + ((c0 + 16 * kk + (lane & 15)) * kP +
+                                     16 * p + (lane >> 4) * 8) * 2);
+          mma_bf16(acc[2 * p], af, b[0], b[1]);
+          mma_bf16(acc[2 * p + 1], af, b[2], b[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if (!busy) return;
+  // the row sums over the quad, then O = acc / l and lse = m + ln(l)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const float inv_l = 1.f / l[i];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[j][2 * i] *= inv_l;
+      acc[j][2 * i + 1] *= inv_l;
+    }
+  }
+  store_rows<D>(static_cast<bf16*>(a.o) + s * a.os.s + h * a.os.h, a.os.n,
+                acc, 1.f, r0, a.N, lane);
+  if (a.lse == nullptr || t != 0) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + (lane >> 2) + 8 * i;
+    if (row < a.N)
+      a.lse[s * a.lse_s + h * a.lse_h + row] = (m[i] + log2f(l[i])) * kLn2;
+  }
+}
+
+template <int D>
+int launch_fwd(const Args& a, bool bf16_, cudaStream_t stream) {
+  const long long blocks = static_cast<long long>(a.n_t) * a.H * a.S;
   if (blocks > INT_MAX) return int(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(blocks));
-  switch (D) {
-    case 16: fwd_kernel<T, 16><<<grid, kBQ, 0, stream>>>(a); break;
-    case 32: fwd_kernel<T, 32><<<grid, kBQ, 0, stream>>>(a); break;
-    case 64: fwd_kernel<T, 64><<<grid, kBQ, 0, stream>>>(a); break;
-    default: return int(cudaErrorInvalidValue);
-  }
+  if (bf16_) fwd_bf16_kernel<D><<<grid, kMmaThreads, 0, stream>>>(a);
+  else fwd_f32_kernel<D><<<grid, kBQ, 0, stream>>>(a);
   return int(cudaGetLastError());
 }
+
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
 
 struct BwdArgs {
   const void* q;
@@ -404,146 +730,6 @@ __global__ void __launch_bounds__(kBK) dkv_f32_kernel(BwdArgs a) {
   for (int d = 0; d < D; ++d) {
     dkp[d] = dk[d] * a.scale;
     dvp[d] = dv[d];
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16 backward: mma.sync tensor cores
-// ---------------------------------------------------------------------------
-
-typedef __nv_bfloat16 bf16;
-
-constexpr int kMmaThreads = 128;        // 4 warps of 16 rows
-constexpr int kTile = 64;               // rows per block and per streamed tile
-static_assert(kTile == kMmaThreads / 32 * 16, "16 rows per warp");
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; with valid false nothing is read and the 16
-// bytes are zero
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t a) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x on the SFU (ex2.approx.ftz: one instruction; 2^-inf is +0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// two f32 values rounded to bf16 in one register, lo in the low half (the
-// lower column of an mma fragment)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// The warp's rows [r0, r0 + 16) of an (N, D) operand as mma A fragments,
-// one per 16 columns, read straight from device memory (once per block):
-// lane (g, t) = (lane / 4, lane % 4) holds rows g and g + 8, columns 2t,
-// 2t + 1 and 2t + 8, 2t + 9. Rows past N are zero.
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t (&f)[D / 16][4],
-                                       const bf16* base, long long stride,
-                                       int r0, int n, int lane) {
-  const int ra = r0 + (lane >> 2), rb = ra + 8, c = 2 * (lane & 3);
-  const unsigned* pa =
-      reinterpret_cast<const unsigned*>(base + ra * stride + c);
-  const unsigned* pb =
-      reinterpret_cast<const unsigned*>(base + rb * stride + c);
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    f[kk][0] = ra < n ? __ldg(pa + 8 * kk) : 0u;
-    f[kk][1] = rb < n ? __ldg(pb + 8 * kk) : 0u;
-    f[kk][2] = ra < n ? __ldg(pa + 8 * kk + 4) : 0u;
-    f[kk][3] = rb < n ? __ldg(pb + 8 * kk + 4) : 0u;
-  }
-}
-
-// Rows [r0, r0 + 64) of an (N, D) operand into a padded shared tile by
-// 16-byte cp.async (every thread of the block takes its share); rows past N
-// are zero-filled.
-template <int D>
-__device__ __forceinline__ void copy_tile(bf16 (*dst)[D + 8],
-                                          const bf16* src, long long stride,
-                                          int r0, int n) {
-  constexpr int kChunks = D / 8;        // 16-byte chunks per row
-  static_assert(kTile * kChunks % kMmaThreads == 0, "whole rounds");
-#pragma unroll
-  for (int i = 0; i < kTile * kChunks / kMmaThreads; ++i) {
-    const int c = threadIdx.x + i * kMmaThreads;
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    const bool ok = r0 + r < n;
-    cp_async16(smem_addr(&dst[r][col]),
-               ok ? src + (r0 + r) * stride + col : src, ok);
-  }
-}
-
-// The accumulators of 16 columns (two n8 tiles j and j + 1) rounded to bf16
-// as the A fragment of a k16 step: rows g and g + 8, columns 2t, 2t + 1 of
-// each tile.
-__device__ __forceinline__ void pack_a(uint32_t (&f)[4], const float (&lo)[4],
-                                       const float (&hi)[4]) {
-  f[0] = pack_bf16(lo[0], lo[1]);
-  f[1] = pack_bf16(lo[2], lo[3]);
-  f[2] = pack_bf16(hi[0], hi[1]);
-  f[3] = pack_bf16(hi[2], hi[3]);
-}
-
-// Stores rows g and g + 8 (of the warp's rows from r0) of a (16, D)
-// accumulator, times mul, as bf16 pairs; rows past N are not stored.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* base, long long stride,
-                                           const float (&acc)[D / 8][4],
-                                           float mul, int r0, int n,
-                                           int lane) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = r0 + (lane >> 2) + 8 * i;
-    if (row >= n) continue;
-    bf16* out = base + row * stride + 2 * (lane & 3);
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
-          __floats2bfloat162_rn(acc[j][2 * i] * mul, acc[j][2 * i + 1] * mul);
   }
 }
 
@@ -809,10 +995,10 @@ __global__ void __launch_bounds__(kMmaThreads) dkv_bf16_kernel(BwdArgs a) {
 // Every row start of a bf16 view on 16 bytes (the copies are 16 bytes, the
 // fragment loads and stores 4): the base, and each stride of an axis longer
 // than 1 a multiple of 8 elements.
-bool rows_aligned16(const void* p, const Strides& st, const BwdArgs& a) {
+bool rows_aligned16(const void* p, const Strides& st, int S, int H, int N) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
-         (a.S == 1 || st.s % 8 == 0) && (a.H == 1 || st.h % 8 == 0) &&
-         (a.N == 1 || st.n % 8 == 0);
+         (S == 1 || st.s % 8 == 0) && (H == 1 || st.h % 8 == 0) &&
+         (N == 1 || st.n % 8 == 0);
 }
 
 template <int D>
@@ -849,7 +1035,7 @@ int bwd(bool dkv, const void* q, const void* k, const void* v,
   if (bf16_) {
     const void* ptrs[] = {q, k, v, dout, dq, dk, dv};
     for (int i = 0; i < 7; ++i)
-      if (!rows_aligned16(ptrs[i], *st[i], a))
+      if (!rows_aligned16(ptrs[i], *st[i], S, H, N))
         return int(cudaErrorInvalidValue);
   }
   cudaStream_t st_ = static_cast<cudaStream_t>(stream);
@@ -870,7 +1056,8 @@ int bwd(bool dkv, const void* q, const void* k, const void* v,
 extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o,
                       void* lse, int dtype, int S, int H, int N, int D,
                       float scale, const long long* strides, void* stream) {
-  if (S < 1 || H < 1 || N < 1) return int(cudaErrorInvalidValue);
+  if (S < 1 || H < 1 || N < 1 || (dtype != 0 && dtype != 1))
+    return int(cudaErrorInvalidValue);
   Args a;
   a.q = q; a.k = k; a.v = v; a.o = o;
   a.lse = static_cast<float*>(lse);
@@ -881,12 +1068,23 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o,
   a.lse_s = strides[12];
   a.lse_h = strides[13];
   a.S = S; a.H = H; a.N = N;
-  a.n_qt = (N + kBQ - 1) / kBQ;
+  a.n_t = (N + kTile - 1) / kTile;
   a.scale = scale;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(a, D, st);
-  if (dtype == 1) return launch<__nv_bfloat16>(a, D, st);
-  return int(cudaErrorInvalidValue);
+  const bool bf16_ = dtype == 1;
+  if (bf16_) {
+    const void* ptrs[] = {q, k, v, o};
+    const Strides* st[] = {&a.qs, &a.ks, &a.vs, &a.os};
+    for (int i = 0; i < 4; ++i)
+      if (!rows_aligned16(ptrs[i], *st[i], S, H, N))
+        return int(cudaErrorInvalidValue);
+  }
+  cudaStream_t st_ = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return launch_fwd<16>(a, bf16_, st_);
+    case 32: return launch_fwd<32>(a, bf16_, st_);
+    case 64: return launch_fwd<64>(a, bf16_, st_);
+    default: return int(cudaErrorInvalidValue);
+  }
 }
 
 // Backward, same conventions. strides: 23 int64 values, (s, h, n) for q, k,

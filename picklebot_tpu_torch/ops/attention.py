@@ -38,10 +38,14 @@ from picklebot_tpu_torch.ops.flash_attention import (
 from picklebot_tpu_torch.ops.linear import Dropout, Linear
 from picklebot_tpu_torch.ops.norm import LayerNorm
 
-# The JAX package's threshold for 'auto' (a TPU measurement, kept so that
-# the port runs the same path; re-measuring it on the card is queued in
-# ROADMAP.md).
-_PACKED_MIN_SEQ = 512
+# 'auto' sends sequences of at least this many tokens to the head-packed
+# kernel. Measured on an NVIDIA H100 80GB HBM3 at 700 W by chip_smoke.py's
+# sweep over N = 32 ... 784 (64 sequences x 8 heads x 16, bf16): the
+# tensor-core forward kernel beats the plain sdpa route at every swept N,
+# forward alone and forward + backward, by device time (4-28x) and by CUDA
+# events, so every MobileViT stage (N = 784, 147, 32) takes the kernel.
+# The JAX package keeps its own 512, a TPU measurement.
+_PACKED_MIN_SEQ = 32
 
 BACKENDS = ("auto", "xla", "packed", "pallas", "pallas_packed")
 

@@ -24,14 +24,15 @@ and an input requires grad, each entry runs a ``torch.autograd.Function``:
 its forward is the kernel with the f32 logsumexp, its backward computes
 D = rowsum(dO * O) in f32 in torch, then launches the dQ and the dK/dV
 kernels (on the CPU: the plain forward with lse and
-``flash_backward_reference``); in bf16 those run on the tensor cores and
-copy rows in 16-byte pieces, so a view whose rows do not start on 16
-bytes is refused (``_rows_aligned16``), never copied. Otherwise the
-forward runs alone, without
-the lse. Numerics follow the Pallas kernels: f32 scores and softmax
-statistics, P rounded to v's dtype before the PV product (to dO's before
-dV), dS to the inputs' dtype before dQ and dK, f32 accumulation, outputs
-cast at the end. The plain forward is ``sdpa`` (the JAX package's
+``flash_backward_reference``). Otherwise the forward runs alone, without
+the lse. In bf16 every kernel runs on the tensor cores (``_forward_plan``,
+``_backward_plan``) and copies rows in 16-byte pieces, so a view whose
+rows do not start on 16 bytes is refused (``_rows_aligned16``), never
+copied; the views the model hands on (the qkv split's chunks, split
+heads, the qkv-packed select) are aligned. Numerics follow the Pallas
+kernels: f32 scores and softmax statistics, P rounded to v's dtype before
+the PV product (to dO's before dV), dS to the inputs' dtype before dQ and
+dK, f32 accumulation, outputs cast at the end. The plain forward is ``sdpa`` (the JAX package's
 ``sdpa_xla``: f32 logits and softmax, probabilities rounded to v's dtype,
 the product accumulated in f32) with split and merged heads.
 """
@@ -50,7 +51,7 @@ LAUNCHES = {"packed": 0, "heads": 0, "dq": 0, "dkv": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64)
-_BWD_ROWS = 64          # query (dQ) or key (dK/dV) rows per backward block
+_ROWS = 64              # rows per block of every flash kernel
 _FNS = {}
 
 
@@ -202,9 +203,14 @@ def _raise_on(err: int, what: str):
 
 def _launch(q4, k4, v4, o4, lse3, scale: float):
     """One forward launch on (S, H, N, D) views, stride 1 along D; lse3 an
-    f32 (S, H, N) view with stride 1 along N, or None."""
+    f32 (S, H, N) view with stride 1 along N, or None. bf16 views must pass
+    ``_rows_aligned16``: an unaligned one is refused, not copied."""
     s, h, n, d = q4.shape
-    strides = _strides((q4, k4, v4, o4))
+    views = (q4, k4, v4, o4)
+    strides = _strides(views)
+    ptrs = [t.data_ptr() for t in views]
+    _refuse_unaligned(_forward_plan(q4.shape, q4.dtype), ptrs, strides,
+                      (s, h, n), "forward")
     if lse3 is not None:
         assert lse3.dtype == torch.float32 and lse3.stride(-1) == 1
         strides += lse3.stride()[:2]
@@ -213,9 +219,7 @@ def _launch(q4, k4, v4, o4, lse3, scale: float):
     arr = (ctypes.c_longlong * 14)(*strides)
     with torch.cuda.device(q4.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _fn("fwd")(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
-                         o4.data_ptr(),
-                         0 if lse3 is None else lse3.data_ptr(),
+        err = _fn("fwd")(*ptrs, 0 if lse3 is None else lse3.data_ptr(),
                          _DTYPES[q4.dtype], s, h, n, d, float(scale),
                          ctypes.addressof(arr), stream)
     _raise_on(err, "forward")
@@ -227,36 +231,50 @@ def _backward_d(o4, g4):
     return (g4.float() * o4.float()).sum(-1).contiguous()
 
 
-BackwardPlan = collections.namedtuple("BackwardPlan",
-                                      "kernel threads rows blocks")
+KernelPlan = collections.namedtuple("KernelPlan",
+                                    "kernel threads rows blocks")
+ForwardPlan = BackwardPlan = KernelPlan
 
 
-def _backward_plan(shape, dtype) -> BackwardPlan:
-    """How ``csrc/flash_attention.cu`` runs the dQ and the dK/dV kernel on
-    (S, H, N, D): bf16 on the tensor cores (``mma``: 4 warps of 16 rows),
-    f32 on the FMA kernels (``fma``: one thread per row); either way one
-    block per (sequence, head, 64-row tile)."""
+def _kernel_plan(shape, dtype) -> KernelPlan:
+    """How ``csrc/flash_attention.cu`` runs the forward, the dQ and the
+    dK/dV kernel on (S, H, N, D): bf16 on the tensor cores (``mma``: 4
+    warps of 16 rows), f32 on the FMA kernels (``fma``: one thread per
+    row); either way one block per (sequence, head, 64-row tile) of
+    queries (forward, dQ) or keys (dK/dV)."""
     s, h, n, d = shape
     if d not in _HEAD_DIMS:
         raise ValueError(f"flash attention kernel: head dim {d} (takes "
                          f"{_HEAD_DIMS})")
-    blocks = s * h * -(-n // _BWD_ROWS)
+    blocks = s * h * -(-n // _ROWS)
     if blocks > 2 ** 31 - 1:
-        raise ValueError(f"flash attention backward: {blocks} blocks, more "
+        raise ValueError(f"flash attention kernel: {blocks} blocks, more "
                          "than a grid takes")
-    return BackwardPlan("mma" if dtype == torch.bfloat16 else "fma",
-                        128 if dtype == torch.bfloat16 else 64, _BWD_ROWS,
-                        blocks)
+    return KernelPlan("mma" if dtype == torch.bfloat16 else "fma",
+                      128 if dtype == torch.bfloat16 else 64, _ROWS, blocks)
+
+
+_forward_plan = _backward_plan = _kernel_plan
 
 
 def _rows_aligned16(ptrs, strides, sizes) -> bool:
     """True when every row start of bf16 (S, H, N, D) views lies on 16
-    bytes, as the bf16 backward kernels copy rows in 16-byte pieces: each
+    bytes, as the bf16 kernels copy rows in 16-byte pieces: each
     base pointer of ``ptrs`` a multiple of 16, and each of the views' (s,
     h, n) ``strides`` (``_strides``) on an axis longer than 1 (``sizes``:
     S, H, N) a multiple of 8 elements."""
     return not (any(p % 16 for p in ptrs) or any(
         st % 8 for i, st in enumerate(strides) if sizes[i % 3] > 1))
+
+
+def _refuse_unaligned(plan: KernelPlan, ptrs, strides, sizes, what: str):
+    """Raise when the bf16 (tensor-core) kernels would get views whose
+    rows do not start on 16 bytes (``_rows_aligned16``)."""
+    if plan.kernel == "mma" and not _rows_aligned16(ptrs, strides, sizes):
+        raise ValueError(f"flash attention {what}: a bf16 view's rows do "
+                         "not start on 16 bytes (the kernels copy rows in "
+                         "16-byte pieces); pass tensors whose base and "
+                         "strides are multiples of 8 elements")
 
 
 def _launch_backward_kernel(name, q4, k4, v4, g4, lse3, dd, dq4, dk4, dv4,
@@ -273,15 +291,10 @@ def _launch_backward_kernel(name, q4, k4, v4, g4, lse3, dd, dq4, dk4, dv4,
             raise ValueError("flash attention backward: lse and D must be "
                              f"contiguous f32 {(s, h, n)} tensors")
     views = (q4, k4, v4, g4, dq4, dk4, dv4)
-    plan = _backward_plan(q4.shape, q4.dtype)
     strides = _strides(views)
     ptrs = [t.data_ptr() for t in views]
-    if plan.kernel == "mma" and not _rows_aligned16(ptrs, strides,
-                                                    (s, h, n)):
-        raise ValueError("flash attention backward: a bf16 view's rows do "
-                         "not start on 16 bytes (the kernels copy rows in "
-                         "16-byte pieces); pass tensors whose base and "
-                         "strides are multiples of 8 elements")
+    _refuse_unaligned(_backward_plan(q4.shape, q4.dtype), ptrs, strides,
+                      (s, h, n), "backward")
     arr = (ctypes.c_longlong * 23)(*strides, *dd.stride()[:2])
     with torch.cuda.device(q4.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -318,6 +331,45 @@ def _packed_views(heads, *ts):
             for t in ts]
 
 
+# The forward kernel's arguments for each entry: the new output (and lse)
+# tensors, and the (S, H, N, D) views of q, k, v and the output, with the
+# (S, H, N) lse view or None, that the kernel reads and fills.
+
+def _packed_forward_views(q, k, v, heads, with_lse):
+    lead, n = q.shape[:-2], q.shape[-2]
+    out = torch.empty(q.shape, device=q.device, dtype=q.dtype)
+    lse = (torch.empty(lead + (heads, n), device=q.device,
+                       dtype=torch.float32) if with_lse else None)
+    q4, k4, v4, o4 = _packed_views(heads, q, k, v, out)
+    return out, lse, (q4, k4, v4, o4,
+                      None if lse is None else lse.view(q4.shape[:3]))
+
+
+def _heads_forward_views(q, k, v, with_lse):
+    q4 = _as_seq_head(q)
+    out = torch.empty(q.shape, device=q.device, dtype=q.dtype)
+    lse = (torch.empty(q.shape[:-1], device=q.device, dtype=torch.float32)
+           if with_lse else None)
+    return out, lse, (q4, _as_seq_head(k), _as_seq_head(v),
+                      out.view(q4.shape),
+                      None if lse is None else lse.view(q4.shape[:3]))
+
+
+def _qkvpacked_forward_views(qkv, with_lse):
+    """The output is (..., N, H, D), written through its (S, H, N, D)
+    view."""
+    q, k, v = _qkv_split(qkv)
+    q4 = _as_seq_head(q)
+    s, h, n, d = q4.shape
+    out = torch.empty(qkv.shape[:-3] + qkv.shape[-2:], device=qkv.device,
+                      dtype=qkv.dtype)
+    lse = (torch.empty(q.shape[:-1], device=qkv.device, dtype=torch.float32)
+           if with_lse else None)
+    return out, lse, (q4, _as_seq_head(k), _as_seq_head(v),
+                      out.view(s, n, h, d).transpose(1, 2),
+                      None if lse is None else lse.view(s, h, n))
+
+
 def _packed_forward(q, k, v, heads, scale, with_lse):
     """(out, lse or None): the kernel on a CUDA tensor, the plain version
     on a CPU one."""
@@ -326,13 +378,8 @@ def _packed_forward(q, k, v, heads, scale, with_lse):
                                                with_lse)
         return res if with_lse else (res, None)
     _check(q, k, v)
-    lead, n = q.shape[:-2], q.shape[-2]
-    out = torch.empty(q.shape, device=q.device, dtype=q.dtype)
-    lse = (torch.empty(lead + (heads, n), device=q.device,
-                       dtype=torch.float32) if with_lse else None)
-    q4, k4, v4, o4 = _packed_views(heads, q, k, v, out)
-    _launch(q4, k4, v4, o4,
-            None if lse is None else lse.view(q4.shape[:3]), scale)
+    out, lse, views = _packed_forward_views(q, k, v, heads, with_lse)
+    _launch(*views, scale)
     LAUNCHES["packed"] += 1
     return out, lse
 
@@ -342,32 +389,20 @@ def _heads_forward(q, k, v, scale, with_lse):
         res = sdpa(q, k, v, scale, with_lse)
         return res if with_lse else (res, None)
     _check(q, k, v)
-    q4 = _as_seq_head(q)
-    out = torch.empty(q.shape, device=q.device, dtype=q.dtype)
-    lse = (torch.empty(q.shape[:-1], device=q.device, dtype=torch.float32)
-           if with_lse else None)
-    _launch(q4, _as_seq_head(k), _as_seq_head(v), out.view(q4.shape),
-            None if lse is None else lse.view(q4.shape[:3]), scale)
+    out, lse, views = _heads_forward_views(q, k, v, with_lse)
+    _launch(*views, scale)
     LAUNCHES["heads"] += 1
     return out, lse
 
 
 def _qkvpacked_forward(qkv, scale, with_lse):
-    q, k, v = _qkv_split(qkv)
     if qkv.device.type == "cpu":
-        res = sdpa(q, k, v, scale, with_lse)
+        res = sdpa(*_qkv_split(qkv), scale, with_lse)
         out, lse = res if with_lse else (res, None)
         return out.transpose(-2, -3), lse
-    _check(q, k, v)
-    q4 = _as_seq_head(q)
-    s, h, n, d = q4.shape
-    out = torch.empty(qkv.shape[:-3] + qkv.shape[-2:], device=qkv.device,
-                      dtype=qkv.dtype)
-    lse = (torch.empty(q.shape[:-1], device=qkv.device, dtype=torch.float32)
-           if with_lse else None)
-    _launch(q4, _as_seq_head(k), _as_seq_head(v),
-            out.view(s, n, h, d).transpose(1, 2),
-            None if lse is None else lse.view(s, h, n), scale)
+    _check(*_qkv_split(qkv))
+    out, lse, views = _qkvpacked_forward_views(qkv, with_lse)
+    _launch(*views, scale)
     LAUNCHES["heads"] += 1
     return out, lse
 
