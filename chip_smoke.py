@@ -2,10 +2,12 @@
 """Run the PyTorch/CUDA port on one NVIDIA card and check it end to end.
 
     python3 chip_smoke.py                     # every phase
+    python3 chip_smoke.py --only fused         # the fused kernels' rows
     python3 chip_smoke.py --only conv          # the conv kernel's rows
     python3 chip_smoke.py --only flash         # the flash kernels' rows
-    python3 chip_smoke.py --only kernels serve # or any of kernels, conv,
-                                               # flash, serve, train, timing
+    python3 chip_smoke.py --only kernels serve # or any of kernels, fused,
+                                               # conv, flash, serve, train,
+                                               # timing
 
 Phases, in order (each prints JSON lines; any failure exits non-zero; a
 run with --only says on a JSON line which phases it skipped and prints no
@@ -18,8 +20,11 @@ kernels summary):
   3. kernels  each kernel against its plain PyTorch version on the card:
               the fused bottleneck at the 15 MobileNetLarge3D, the 7
               MobileViT-s and the 11 MobileNetSmall3D bottleneck geometries
-              of a bs-8, 32x224x224 clip batch (bf16), plus one f32 case
-              with TF32 off; the flash forward kernel, packed without lse
+              of a bs-8, 32x224x224 clip batch (bf16; each with its plan,
+              two more calls bit-equal, device times from a trace and the
+              SM clock; a split launch also against the plain version of
+              its order), plus one f32 case with TF32 off; the flash
+              forward kernel, packed without lse
               at MobileViT-s's three stages' shapes and with lse at stage
               1, per head at the three and at N=100, qkv-packed at stage 1
               (bf16; each with its plan, device times from a trace, the SM
@@ -37,9 +42,11 @@ kernels summary):
               (3,3,1), (1,5,3) (bf16 and f32), and in f32 with TF32 off at
               stage 2; kernel, plain and library times by CUDA events,
               bounds, TFLOP/s; the HMMA count of the SASS (cuobjdump) of
-              the conv and flash libraries and their ptxas registers and
-              spills (0 HMMA or a spill in a bf16 conv, flash forward, dQ
-              or dK/dV function fails the run; the others are reported);
+              the fused, conv and flash libraries and their ptxas
+              registers, stack frames and spills (0 HMMA, a spill or a
+              stack frame in a bf16 fused pool or main, conv, flash
+              forward, dQ or dK/dV function fails the run; the others are
+              reported);
               and 'auto''s threshold swept: at N = 32 ... 784 the
               head-packed kernel against the plain sdpa route, forward and
               forward + backward, by CUDA events and device time, and the
@@ -223,7 +230,7 @@ TRAIN_CUTS = {"data_backend": "synthetic", "synthetic_shape": [32, 224, 224],
               "synthetic_len": 48}
 TRAIN_STEPS = 3
 # what --only can pick; with no --only every phase runs
-PHASES = ("kernels", "conv", "flash", "serve", "train", "timing")
+PHASES = ("kernels", "fused", "conv", "flash", "serve", "train", "timing")
 
 
 def emit(obj):
@@ -406,9 +413,26 @@ def check_bf16_flash(name, got, want):
 
 def fused_rows(model, geometries, seed0, reps):
     """The fused-bottleneck kernels against their plain versions at each
-    geometry, with kernel, plain and cuDNN-chain times."""
+    geometry (bf16): the check, the plan, two more calls bit-equal, kernel,
+    plain and cuDNN-chain times by CUDA events, the kernel's device time
+    from a trace and the SM clock after it. A split launch is also held
+    against the plain version of its order (``pool_split_reference``, f32
+    with TF32 off, to F32_REL_TOL: the same f32 values summed in another
+    order; ``main_split_reference`` to the bf16 flash bounds)."""
     import torch
+    from picklebot_tpu_torch.core.policy import DtypePolicy
     from picklebot_tpu_torch.ops import fused_bottleneck as fb
+
+    def timed(name, fn, plain, lib, plan, extra):
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        if not torch.equal(first, second):
+            raise AssertionError(f"{name}: two calls differ")
+        return dict(extra, plan=plan._asdict(), bit_equal_repeat=True,
+                    ms=time_ms(fn, reps), plain_ms=time_ms(plain, reps),
+                    library_ms=time_ms(lib, reps),
+                    device_ms=device_ms(fn, reps),
+                    clocks_after_trace=sm_clocks())
 
     rows, per = [], {"pool": [], "main": []}
     for i, (shape, k, s, se, e, co) in enumerate(geometries):
@@ -418,41 +442,54 @@ def fused_rows(model, geometries, seed0, reps):
         row = {"model": model, "block": i, "x": list(shape), "k": k,
                "s": s, "se": se, "E": e, "out": [b, to, ho, wo, co]}
         if se:
+            name = f"{model} pool block {i}"
+            plan = fb._pool_plan(tuple(shape), k, s, e, x.dtype)
             want = fb.pool_reference(x, w["w1"], w["wd"], k, s)
             got = fb.fused_pool(x, w["w1"], w["wd"], k, s)
             torch.cuda.synchronize()
-            err, ref = check_close(f"{model} pool block {i}", got, want,
-                                   BF16_REL_TOL)
-            per["pool"].append(dict(
-                err=err, **bound(shape, k, s, e, co, 2, "pool"),
-                ms=time_ms(lambda: fb.fused_pool(x, w["w1"], w["wd"], k,
-                                                 s), reps),
-                plain_ms=time_ms(lambda: fb.pool_reference(
-                    x, w["w1"], w["wd"], k, s), reps),
-                library_ms=time_ms(lambda: library_chain(
-                    x, w, k, s, None, False), reps)))
+            err, ref = check_close(name, got, want, BF16_REL_TOL)
+            extra = {}
+            if plan.splits > 1:
+                with DtypePolicy.f32().precision():
+                    split_want = fb.pool_split_reference(x, w["w1"],
+                                                         w["wd"], k, s, plan)
+                extra["err_vs_split_plain"] = check_close(
+                    f"{name} (split plain)", got, split_want,
+                    F32_REL_TOL)[0]
+            per["pool"].append(dict(err=err, **bound(
+                shape, k, s, e, co, 2, "pool"), **timed(
+                name, lambda: fb.fused_pool(x, w["w1"], w["wd"], k, s),
+                lambda: fb.pool_reference(x, w["w1"], w["wd"], k, s),
+                lambda: library_chain(x, w, k, s, None, False), plan,
+                extra)))
             row["pool"] = dict(per["pool"][-1], max_ref=ref)
             scale = fb.se_scale(want / float(to * ho * wo), w["se_w1"],
                                 w["se_b1"], w["se_w2"], w["se_b2"],
                                 x.dtype)
         else:
             scale = torch.ones((b, e), device="cuda")
+        name = f"{model} main block {i}"
+        plan = fb._main_plan(tuple(shape), k, s, e, co, x.dtype)
         want = fb.main_reference(x, w["w1"], w["wd"], w["w2"], scale, k, s)
         got = fb.fused_main(x, w["w1"], w["wd"], w["w2"], scale, k, s)
         torch.cuda.synchronize()
         if tuple(got.shape) != (b, to, ho, wo, co):
-            raise AssertionError(f"{model} main block {i}: shape "
-                                 f"{got.shape}")
-        err, ref = check_close(f"{model} main block {i}", got, want,
-                               BF16_REL_TOL)
-        per["main"].append(dict(
-            err=err, **bound(shape, k, s, e, co, 2, "main"),
-            ms=time_ms(lambda: fb.fused_main(x, w["w1"], w["wd"], w["w2"],
-                                             scale, k, s), reps),
-            plain_ms=time_ms(lambda: fb.main_reference(
-                x, w["w1"], w["wd"], w["w2"], scale, k, s), reps),
-            library_ms=time_ms(lambda: library_chain(x, w, k, s, scale,
-                                                     True), reps)))
+            raise AssertionError(f"{name}: shape {got.shape}")
+        err, ref = check_close(name, got, want, BF16_REL_TOL)
+        extra = {}
+        if plan.splits > 1:
+            with DtypePolicy.f32().precision():
+                split_want = fb.main_split_reference(
+                    x, w["w1"], w["wd"], w["w2"], scale, k, s, plan.splits)
+            extra["vs_split_plain"] = check_bf16_flash(
+                f"{name} (split plain)", got, split_want)
+        per["main"].append(dict(err=err, **bound(
+            shape, k, s, e, co, 2, "main"), **timed(
+            name, lambda: fb.fused_main(x, w["w1"], w["wd"], w["w2"],
+                                        scale, k, s),
+            lambda: fb.main_reference(x, w["w1"], w["wd"], w["w2"], scale,
+                                      k, s),
+            lambda: library_chain(x, w, k, s, scale, True), plan, extra)))
         row["main"] = dict(per["main"][-1], max_ref=ref)
         emit({"phase": "kernels", **row})
         rows.append(row)
@@ -1056,9 +1093,11 @@ def conv_rows(reps):
 def sass_check(lib_path, kernel, must):
     """Tensor cores and registers of one built library: the count of HMMA
     instructions in each function's SASS (``cuobjdump -sass``), and
-    ptxas's registers and spill bytes for each from the build log. Fails
-    if a function whose name holds one of ``must`` (the bf16 ones) has no
-    HMMA or spills, or if there is none; the others are reported only."""
+    ptxas's registers, stack frame and spill bytes for each from the build
+    log. Fails if a function whose name holds one of ``must`` (the bf16
+    ones) has no HMMA, spills or keeps a stack frame (an array indexed at
+    run time lives in local memory without counting as a spill), or if
+    there is none; the others are reported only."""
     import re
     import shutil
     tool = shutil.which("cuobjdump") or os.path.join(
@@ -1079,11 +1118,12 @@ def sass_check(lib_path, kernel, must):
         if found:
             name = found.group(1)
             ptxas[name] = {}
-        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                           r"loads", line)
+        spills = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                           r"stores, (\d+) bytes spill loads", line)
         if name and spills:
-            ptxas[name].update(spill_stores=int(spills.group(1)),
-                               spill_loads=int(spills.group(2)))
+            ptxas[name].update(stack_frame=int(spills.group(1)),
+                               spill_stores=int(spills.group(2)),
+                               spill_loads=int(spills.group(3)))
         regs = re.search(r"Used (\d+) registers", line)
         if name and regs:
             ptxas[name]["registers"] = int(regs.group(1))
@@ -1092,9 +1132,11 @@ def sass_check(lib_path, kernel, must):
     emit({"phase": "kernels", "kernel": kernel, "sass": funcs})
     if not checked or any(v["hmma"] == 0 or v.get("spill_stores", 1)
                           or v.get("spill_loads", 1)
+                          or v.get("stack_frame", 1)
                           for v in checked.values()):
         raise AssertionError(f"{kernel} functions {checked}: each needs HMMA "
-                             "instructions and no spills")
+                             "instructions, no spills and no stack frame "
+                             "(local memory)")
     return funcs
 
 
@@ -1131,6 +1173,12 @@ def fused_large_batch_cases():
 
 
 def phase_kernels():
+    return (*fused_phase(), *flash_phase(), conv_rows(reps=5))
+
+
+def fused_phase():
+    """The fused rows of the three models that run the fused kernels, the
+    f32 case and the large-batch cases."""
     rows, fused_per = [], {}
     for model, geometries, seed0 in (
             ("MobileNetLarge3D", GEOMETRIES, 0),
@@ -1140,9 +1188,7 @@ def phase_kernels():
                                                   reps=5)
         rows += model_rows
     fused_f32_case()
-    large_batch = fused_large_batch_cases()
-    return (rows, fused_per, large_batch, *flash_phase(),
-            conv_rows(reps=5))
+    return rows, fused_per, fused_large_batch_cases()
 
 
 def flash_phase():
@@ -1608,7 +1654,10 @@ def profile_run(name, fn, phase):
     classes = {"flash_attention": ("fwd_bf16_kernel<", "fwd_f32_kernel<"),
                "flash_attention_bwd": ("dq_bf16_kernel<", "dkv_bf16_kernel<",
                                        "dq_f32_kernel<", "dkv_f32_kernel<"),
-               "fused_bottleneck": ("main_kernel<", "pool_kernel<"),
+               "fused_bottleneck": ("main_bf16_kernel<", "pool_bf16_kernel<",
+                                    "main_f32_kernel", "pool_f32_kernel",
+                                    "main_split_sum_kernel",
+                                    "pool_split_sum_kernel"),
                "folded_conv": ("conv_f32_kernel", "conv_bf16_kernel<",
                                "conv_split_sum_kernel"),
                "cudnn_grouped_wgrad": ("convolveNd_wgrad_engine<",)}
@@ -1924,7 +1973,9 @@ def fused_entry(name, line, fused_per, launches_by_run):
     def sums(r):
         if not r:
             return None
+        dev = [v["device_ms"] for v in r]
         return {"ms": sum(v["ms"] for v in r),
+                "device_ms": None if None in dev else sum(dev),
                 "plain_ms": sum(v["plain_ms"] for v in r),
                 "bound_ms": sum(v["bound_ms"] for v in r),
                 "bound_by": ("bytes" if sum(v["bytes_ms"] for v in r)
@@ -1944,7 +1995,7 @@ def fused_entry(name, line, fused_per, launches_by_run):
         "max_abs_err": max(v["err"] for per in fused_per.values()
                            for v in per[name]),
         **{k: large[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                 "library_ms")},
+                                 "library_ms", "device_ms")},
         "per_forward": per_forward}
 
 
@@ -2047,7 +2098,9 @@ def parse_args(argv):
     ap.add_argument(
         "--only", nargs="+", choices=PHASES,
         help="run only these phases after the device and build phases: "
-        "kernels (every kernel against its plain version), conv (the conv "
+        "kernels (every kernel against its plain version), fused (the "
+        "fused-bottleneck rows, the f32 and large-batch cases and the "
+        "fused library's SASS check alone), conv (the conv "
         "kernel's rows alone), flash (the flash kernels' rows alone, "
         "forward and backward), serve, train (the CLI runs, the attention "
         "backends, the gradients against the plain path), timing (the "
@@ -2105,10 +2158,16 @@ def main(argv=None):
     if selected("kernels"):
         rows, fused_per, large_batch, flash, flash_bwd, sweep, conv = \
             phase_kernels()
+    if "fused" in only and not selected("kernels"):
+        rows, fused_per, large_batch = fused_phase()
     if "conv" in only and not selected("kernels"):
         conv = conv_rows(reps=5)
     if "flash" in only and not selected("kernels"):
         flash, flash_bwd, sweep = flash_phase()
+    if selected("kernels") or "fused" in only:
+        sass["fused_bottleneck"] = sass_check(
+            libs["fused_bottleneck"], "fused_bottleneck",
+            ("pool_bf16_kernel", "main_bf16_kernel"))
     if selected("kernels") or "conv" in only:
         sass["folded_conv"] = sass_check(libs["folded_conv"], "folded_conv",
                                          ("conv_bf16_kernel",))
@@ -2197,7 +2256,8 @@ def main(argv=None):
               "train": train}
     if only:
         skipped = [p for p in PHASES if not selected(p)
-                   and not (p in ("conv", "flash") and selected("kernels"))]
+                   and not (p in ("fused", "conv", "flash")
+                            and selected("kernels"))]
         emit({"phase": "skipped", "phases": skipped,
               "note": "a partial run (--only): no summary line"})
         with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_only.json"),
