@@ -5,9 +5,10 @@
     python3 chip_smoke.py --only fused         # the fused kernels' rows
     python3 chip_smoke.py --only conv          # the conv kernel's rows
     python3 chip_smoke.py --only flash         # the flash kernels' rows
+    python3 chip_smoke.py --only stream        # serve --stream's models
     python3 chip_smoke.py --only kernels serve # or any of kernels, fused,
                                                # conv, flash, serve, train,
-                                               # timing
+                                               # timing, stream
 
 Phases, in order (each prints JSON lines; any failure exits non-zero; a
 run with --only says on a JSON line which phases it skipped and prints no
@@ -81,8 +82,26 @@ kernels summary):
               step time, samples/s, forward and backward split, peak
               memory, and a torch.profiler trace of one train step per
               model (MobileViT-s also with conv1/conv4 on the library
-              conv, and at each of 'auto''s threshold routes)
-  7. summary  {"kernels": [...]}, the card line, and last
+              conv, and at each of 'auto''s threshold routes, 3 timed
+              steps each)
+  7. stream   the online models of serve --stream (MoViNetA2Stream,
+              MobileNetLarge2D, MobileNetSmall2D), none of which runs a
+              hand-written kernel: picklebot_tpu_torch.serve.main on 16
+              whole synthetic clips each (exactly zero launches, finite
+              (8, 13) logits); serve's per-clip stream loop on one 32-frame
+              clip at --chunk 1, 4 and 5, f32 and bf16, against the whole
+              clip (the 2-D models) or the same pieces on the CPU
+              (MoViNetA2Stream, whose SE blocks pool the chunk's frames;
+              in bf16 the card's distance from f32 against the CPU's),
+              BatchNorm variances calibrated no lower than 1e-2;
+              causality (the first chunk's logits under two different
+              tails); per-chunk latency at --chunk 1 and 4 (host clock and
+              CUDA events, median of 20 after 4), frames/s, a trace of one
+              chunk-1 step, the whole-clip forward at bs 8; the CLI on a
+              config derived from mobilenet_large2d_50k.json (cut as the
+              train phase's), its .pth streamed; train() refusing
+              MoViNetA2Stream
+  8. summary  {"kernels": [...]}, the card line, and last
               {"ok": true, "device": ...}
 Per-shape numbers also go to chiprun_out/chip_smoke.json. Without CUDA it
 exits with code 2 and prints no result. Imports nothing of JAX.
@@ -99,6 +118,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+import numpy as np
 
 T_START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -164,6 +185,11 @@ VIT_PACKED = {784: 2, 147: 4, 32: 3}
 # is the JAX package's (a TPU measurement)
 SWEEP_N = (32, 64, 147, 256, 512, 784)
 PACKED_MIN_SEQ_TURNS = (785, 512, 147, 32)
+# timed train steps at each of those routes in the timing phase (5
+# elsewhere): cut from 5 so that the whole script keeps its time with the
+# stream phase added; the routes' train steps lie within host noise of
+# each other (PERF.md)
+TRAIN_TURN_REPS = 3
 # MobileViT-s's dense stride-1 3x3x3 convs at the same input, per stage:
 # the MobileViTBlock's activation (B, T, H, W) and channel width C; conv1
 # is C -> C on it, conv4 2C -> C. The serve phase checks that the model
@@ -229,8 +255,31 @@ TRAIN_CUTS = {"data_backend": "synthetic", "synthetic_shape": [32, 224, 224],
               "batch_size": 8, "effective_batch_size": 16,
               "synthetic_len": 48}
 TRAIN_STEPS = 3
+# the online models of serve --stream; the chunks the stream phase holds
+# against the whole clip (5 leaves a ragged tail of 2 on 32 frames), and
+# the chunks it times (median of 20 chunks after 4 warm-up)
+STREAM_MODELS = ("MoViNetA2Stream", "MobileNetLarge2D", "MobileNetSmall2D")
+STREAM_CHUNKS = (1, 4, 5)
+STREAM_TIMED = (1, 4)
+STREAM_WARMUP, STREAM_REPS = 4, 20
+# the stream models' BatchNorm variances are calibrated no lower than this
+# (as in tests/test_torch_stream.py): a near-constant channel divided by a
+# variance near 0 amplifies rounding
+STREAM_BN_VAR_FLOOR = 1e-2
+# MoViNetA2Stream in bf16 on the card against the same run on the CPU: bf16
+# alone moves this model's logits further than 5% of max|logit| on both
+# sides alike (on an H100 the whole clip's 0.2008 on the card and 0.2001 on
+# the CPU from f32, at max|logit| 0.18; PERF.md), so the card's bf16 logits
+# are held to the f32 ones: no farther than 2x the CPU's bf16 run, plus 5%
+# of max|logit|, as the train phase holds bf16 gradients (GRAD_BF16_FACTOR)
+STREAM_BF16_FACTOR = 2.0
+# causality: the first chunk's logits under two different tails. Expected
+# bit-equal (the same kernels on the same inputs); 1e-6 of max|logit| is
+# allowed in case cuDNN picks its algorithm per call
+CAUSAL_REL_TOL = 1e-6
 # what --only can pick; with no --only every phase runs
-PHASES = ("kernels", "fused", "conv", "flash", "serve", "train", "timing")
+PHASES = ("kernels", "fused", "conv", "flash", "serve", "train", "timing",
+          "stream")
 
 
 def emit(obj):
@@ -1197,10 +1246,11 @@ def flash_phase():
             packed_route_sweep(reps=10))
 
 
-def calibrate_batchnorm(model, x):
+def calibrate_batchnorm(model, x, var_floor=0.0):
     """Set every BatchNorm's running statistics to those of its input on
-    one batch (the plain path, on the card): a seeded random model then
-    gives O(1) activations and logits whose argmax means something."""
+    one batch (the plain path, on the card), the variance at least
+    ``var_floor``: a seeded random model then gives O(1) activations and
+    logits whose argmax means something."""
     import torch
     from picklebot_tpu_torch.ops.norm import BatchNorm
 
@@ -1208,7 +1258,8 @@ def calibrate_batchnorm(model, x):
         v = args[0].float()
         dims = tuple(range(v.dim() - 1))
         mod.running_mean.copy_(v.mean(dims))
-        mod.running_var.copy_(v.var(dims, unbiased=False))
+        mod.running_var.copy_(v.var(dims, unbiased=False).clamp_min(
+            var_floor))
 
     handles = [m.register_forward_pre_hook(hook) for m in model.modules()
                if isinstance(m, BatchNorm)]
@@ -1345,9 +1396,10 @@ def plain_logits(name, model, x):
 
 
 def logits_against_plain(name, got, ref):
-    """Kernel-path logits against the plain path's, both on the card:
-    max abs err within 5% of max|logit|, argmax equal wherever the plain
-    top-2 margin exceeds twice that."""
+    """Logits against a reference's (the kernel path's against the plain
+    path's on the card, unless the caller says otherwise): max abs err
+    within 5% of max|logit|, argmax equal wherever the reference's top-2
+    margin exceeds twice that."""
     import torch
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: non-finite logits")
@@ -1684,16 +1736,301 @@ def profile_run(name, fn, phase):
 
 
 # --------------------------------------------------------------------------
+# stream
+# --------------------------------------------------------------------------
+
+def stream_model(name):
+    from picklebot_tpu_torch.models.registry import initialize_model
+    from picklebot_tpu_torch.utils.config import Config
+    return initialize_model(Config(model_name=name, num_classes=13,
+                                   seed=0).validate())
+
+
+def streamed(model, frames, chunk, policy, device="cuda"):
+    """serve's per-clip stream loop (``serve.stream_clip``, what --stream
+    runs after decoding) on uint8 frames (T, 224, 224, 3): the list of
+    (record, f32 logits) per chunk."""
+    from picklebot_tpu_torch.serve import stream_clip
+    return list(stream_clip(model, frames, chunk, policy, device, "CE", 13))
+
+
+def check_records(name, records, t_total, chunk):
+    frames = [r["frame"] for r, _ in records]
+    want = list(range(chunk, t_total, chunk)) + [t_total]
+    if frames != want or not all(
+            0 <= r["pred"] < 13 and 0 < r["confidence"] <= 1
+            and np.isfinite(lg).all() for r, lg in records):
+        raise AssertionError(f"{name} chunk {chunk}: frames {frames} (want "
+                             f"{want}), records {records[-1][0]}")
+
+
+def cpu_stream_logits(model, frames, chunk, policy):
+    """The last logits of a stream over uint8 frames (T, H, W, 3) on the
+    CPU, written out plainly by the JAX server's rule: whole chunks, then
+    a ragged tail frame by frame, from a zero carry; f32 (1, classes)."""
+    import torch
+    from picklebot_tpu_torch.train.step import preprocess
+    dtype = policy.compute_dtype
+    tail = len(frames) % chunk
+    sizes = [chunk] * (len(frames) // chunk) + [1] * tail
+    start = 0
+    with torch.inference_mode(), policy.precision():
+        carry = model.init_stream(1, *frames.shape[1:3], dtype, "cpu")
+        for size in sizes:
+            x = preprocess(torch.from_numpy(frames[None, start:start + size]),
+                           dtype)
+            logits, carry = model(x, carry)
+            start += size
+    return logits.float()
+
+
+def stream_against_whole(name, model, frames):
+    """The last chunk's logits of --stream at each of STREAM_CHUNKS on one
+    32-frame clip (t_bucket 32: no padding frames), in f32 with TF32 off
+    and in bf16, against a reference: f32 within 1e-4 of max|logit|, bf16
+    within 5% of max|logit| with the argmax equal where the top-2 margin
+    is clear (MoViNetA2Stream: STREAM_BF16_FACTOR's bound).
+
+    The 2-D models' reference is the whole-clip predict path in the same
+    dtype: their chunks give the whole clip's logits exactly (the SE
+    blocks pool each frame alone, the LSTM is causal). MoViNetA2Stream's
+    SE blocks pool over the chunk's frames, as in the JAX package, so its
+    chunked logits are not the whole clip's (their distance is reported):
+    its reference is the same pieces run on the CPU in the same dtype
+    (``cpu_stream_logits``), and its whole-clip pass is held to the CPU's
+    too. Its bf16 check reads how far bf16 itself moves each side: the
+    card's bf16 logits from the card's f32 ones, and the CPU's from the
+    CPU's; the card's may be at most STREAM_BF16_FACTOR times the CPU's,
+    plus 5% of max|logit|. The card-vs-CPU distance is reported."""
+    import torch
+    from picklebot_tpu_torch.core.policy import DtypePolicy
+    from picklebot_tpu_torch.train.step import make_predict_fn
+    cpu_model = None
+    if name == "MoViNetA2Stream":
+        cpu_model = stream_model(name).eval()
+        cpu_model.load_state_dict(model.state_dict())
+    out, f32 = {}, {}
+
+    def check(label, dtype, key, got, ref):
+        if dtype == "float32":
+            f32[key] = got, ref
+            err = (got - ref).abs().max().item()
+            scale_ = ref.abs().max().item()
+            if not err <= F32_REL_TOL * scale_:
+                raise AssertionError(f"{label}: max abs err {err}, tol "
+                                     f"{F32_REL_TOL * scale_}")
+            return {"logits_max_abs_err": err, "logits_max_abs": scale_,
+                    "rel_tol": F32_REL_TOL}
+        if cpu_model is None:
+            return logits_against_plain(label, got, ref)
+        card, cpu = f32[key]
+        res = {"logits_max_abs_err": (got - ref).abs().max().item(),
+               "bf16_vs_f32_card": (got - card).abs().max().item(),
+               "bf16_vs_f32_cpu": (ref - cpu).abs().max().item(),
+               "f32_logits_max_abs": cpu.abs().max().item()}
+        res["tol"] = (STREAM_BF16_FACTOR * res["bf16_vs_f32_cpu"]
+                      + LOGIT_REL_TOL * res["f32_logits_max_abs"])
+        if not (torch.isfinite(got).all()
+                and res["bf16_vs_f32_card"] <= res["tol"]):
+            raise AssertionError(f"{label}: the card's bf16 logits lie "
+                                 f"farther from f32 than the CPU's allow: "
+                                 f"{res}")
+        return res
+
+    for dtype, policy in (("float32", DtypePolicy.f32()),
+                          ("bfloat16", DtypePolicy.bf16())):
+        whole = torch.from_numpy(
+            make_predict_fn(model, policy, device="cuda")(frames[None]))
+        if cpu_model is not None:
+            whole_cpu = torch.from_numpy(make_predict_fn(
+                cpu_model, policy, device="cpu")(frames[None]))
+            out[f"{dtype}_whole_clip_card_vs_cpu"] = check(
+                f"{name} {dtype} whole clip against the CPU", dtype, "whole",
+                whole, whole_cpu)
+        for chunk in STREAM_CHUNKS:
+            records = streamed(model, frames, chunk, policy)
+            check_records(name, records, len(frames), chunk)
+            got = torch.from_numpy(records[-1][1])
+            ref, against = whole, "whole_clip"
+            if cpu_model is not None:
+                ref = cpu_stream_logits(cpu_model, frames, chunk, policy)
+                against = "cpu_stream"
+            res = check(f"{name} {dtype} stream chunk {chunk} against "
+                        f"{against}", dtype, chunk, got, ref)
+            out[f"{dtype}_chunk{chunk}"] = dict(
+                res, against=against, chunks=len(records),
+                argmax=int(got.argmax()), ref_argmax=int(ref.argmax()),
+                whole_clip_max_abs_err=(got - whole).abs().max().item(),
+                whole_clip_max_abs=whole.abs().max().item())
+    return out
+
+
+def causality(name, model, frames):
+    """Two clips that share their first 4 frames: the first chunk's
+    logits (--chunk 4) must not change with the frames after it."""
+    from picklebot_tpu_torch.core.policy import DtypePolicy
+    other = frames.copy()
+    other[4:] = np.random.RandomState(1).randint(
+        0, 256, other[4:].shape, np.uint8)
+    runs = [streamed(model, clip, 4, DtypePolicy.bf16())
+            for clip in (frames, other)]
+    firsts = [r[0][1] for r in runs]
+    if np.array_equal(runs[0][-1][1], runs[1][-1][1]):
+        raise AssertionError(f"{name}: the last chunk's logits do not see "
+                             "the changed frames")
+    err = float(np.abs(firsts[0] - firsts[1]).max())
+    scale_ = float(np.abs(firsts[0]).max())
+    if err > CAUSAL_REL_TOL * scale_:
+        raise AssertionError(f"{name}: the first chunk's logits moved by "
+                             f"{err} with later frames")
+    return {"bit_equal": bool(np.array_equal(firsts[0], firsts[1])),
+            "max_abs_err": err, "logits_max_abs": scale_}
+
+
+def stream_timing(model, chunk):
+    """Per-chunk latency of --stream at ``chunk`` frames, bf16, on a clip
+    of (STREAM_WARMUP + STREAM_REPS) chunks of random frames: host clock
+    around each chunk (H2D, preprocess, forward, logits to the host) and
+    CUDA events around the forward; medians over STREAM_REPS after
+    STREAM_WARMUP chunks."""
+    import torch
+    from picklebot_tpu_torch.core.policy import DtypePolicy
+    from picklebot_tpu_torch.serve import stream_clip
+    n = STREAM_WARMUP + STREAM_REPS
+    frames = np.random.RandomState(2).randint(
+        0, 256, (n * chunk, 224, 224, 3), np.uint8)
+    events = []
+
+    def before(mod, args):
+        events.append([torch.cuda.Event(enable_timing=True),
+                       torch.cuda.Event(enable_timing=True)])
+        events[-1][0].record()
+
+    def after(mod, args, out):
+        events[-1][1].record()
+
+    hooks = [model.register_forward_pre_hook(before),
+             model.register_forward_hook(after)]
+    host = []
+    try:
+        gen = stream_clip(model, frames, chunk, DtypePolicy.bf16(), "cuda",
+                          "CE", 13)
+        while True:
+            t0 = time.perf_counter()
+            if next(gen, None) is None:
+                break
+            host.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    ev = [a.elapsed_time(b) for a, b in events]
+    host, ev = host[STREAM_WARMUP:], ev[STREAM_WARMUP:]
+    host_ms = float(np.median(host))
+    return {"chunk": chunk, "chunks_timed": len(host),
+            "host_ms_median": host_ms, "event_ms_median": float(
+                np.median(ev)), "host_ms_min": min(host),
+            "host_ms_max": max(host), "frames_per_s": chunk * 1e3 / host_ms}
+
+
+def stream_profile(name, model):
+    """A torch.profiler trace of one chunk-1 step of --stream (bf16)."""
+    from picklebot_tpu_torch.core.policy import DtypePolicy
+    from picklebot_tpu_torch.serve import stream_clip
+    frames = np.random.RandomState(3).randint(0, 256, (4, 224, 224, 3),
+                                              np.uint8)
+    gen = stream_clip(model, frames, 1, DtypePolicy.bf16(), "cuda", "CE",
+                      13)
+    return profile_run(name, lambda: next(gen), "stream_profile")
+
+
+def phase_stream_model(name, gpu_line, feats, x):
+    """One online model: serve.main on whole clips (no hand-written
+    launch), its logits, --stream against the whole clip, causality,
+    chunk latency, a chunk-1 trace and the whole-clip forward time."""
+    import torch
+
+    t_start = time.perf_counter()
+    model = stream_model(name).cuda().eval()
+    calibrate_batchnorm(model, x, STREAM_BN_VAR_FLOOR)
+    counters = all_counters()
+    launches, serve_s, n_preds, evaluated = serve_run(
+        serve_config(name), model, counters)
+    if launches != launches_wanted():
+        raise AssertionError(f"serve {name}: launches {launches}, want "
+                             "none")
+    with torch.inference_mode():
+        logits = model(x).float()
+    if tuple(logits.shape) != (8, 13) or not torch.isfinite(logits).all():
+        raise AssertionError(f"{name} logits: shape {tuple(logits.shape)}, "
+                             "or not finite")
+    emit({"phase": "stream", "model": name, "predictions": n_preds,
+          "evaluated": evaluated, "launches": launches,
+          "logits_max_abs": logits.abs().max().item(),
+          "serve_wall_s": serve_s})
+    frames = feats[0]                      # one 32-frame 224x224 clip
+    zero_counters(counters)
+    against = stream_against_whole(name, model, frames)
+    causal = causality(name, model, frames)
+    stream_launches = read_counters(counters)
+    if stream_launches != launches_wanted():
+        raise AssertionError(f"--stream {name}: launches {stream_launches}"
+                             ", want none")
+    emit({"phase": "stream", "model": name, "against_whole_clip": against,
+          "causality": causal, "launches": stream_launches})
+    timing = {f"chunk{c}": stream_timing(model, c) for c in STREAM_TIMED}
+    with torch.inference_mode():
+        forward_ms = time_ms(lambda: model(x), reps=5)
+    result = {"phase": "stream", "model": name, "card": gpu_line,
+              "latency": timing, "whole_clip_forward_ms_bs8": forward_ms}
+    emit(result)
+    result.update(against_whole_clip=against, causality=causal,
+                  serve_launches=launches, stream_launches=stream_launches,
+                  profile=stream_profile(name, model))
+    result["seconds"] = time.perf_counter() - t_start
+    return result
+
+
+def phase_stream(gpu_line, feats, x, counters):
+    """The three online models, then MobileNetLarge2D trained through the
+    CLI (no hand-written launch; its .pth served through --stream), and
+    train() refusing MoViNetA2Stream."""
+    from picklebot_tpu_torch.train.loop import train
+    from picklebot_tpu_torch.utils.config import Config
+    out = {name: phase_stream_model(name, gpu_line, feats, x)
+           for name in STREAM_MODELS}
+    t0 = time.perf_counter()
+    out["train_MobileNetLarge2D"] = phase_train_cli(
+        "MobileNetLarge2D", "mobilenet_large2d_50k.json", counters,
+        *[launches_wanted()] * 2, stream=True)
+    try:
+        train(Config(model_name="MoViNetA2Stream", num_classes=13),
+              device="cuda")
+    except ValueError as e:
+        if "MoViNetA2Stream" not in str(e):
+            raise
+        out["train_refuses_MoViNetA2Stream"] = str(e)
+    else:
+        raise AssertionError("train() took a MoViNetA2Stream config")
+    emit({"phase": "stream", "train_refuses_MoViNetA2Stream":
+          out["train_refuses_MoViNetA2Stream"]})
+    out["train_MobileNetLarge2D"]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# --------------------------------------------------------------------------
 # train
 # --------------------------------------------------------------------------
 
-def phase_train_cli(label, cfg_file, counters, per_micro, per_eval):
+def phase_train_cli(label, cfg_file, counters, per_micro, per_eval,
+                    stream=False):
     """``python -m picklebot_tpu_torch.cli`` (in process) on
     ``configs/<cfg_file>`` with TRAIN_CUTS, for TRAIN_STEPS steps, every
     launch count set to 0 just before and read just after: the counts
     must be exactly ``per_micro`` per train microbatch (forward and
     backward) plus ``per_eval`` per eval batch. Then the .pth it wrote
-    serves 8 clips."""
+    serves 8 clips, and with ``stream`` one 32-frame clip through
+    --stream's loop (--chunk 4)."""
     import math
     import torch
     from picklebot_tpu_torch import cli, serve
@@ -1745,12 +2082,23 @@ def phase_train_cli(label, cfg_file, counters, per_micro, per_eval):
         if rc != 0 or len(preds) != 8:
             raise AssertionError(f"train {label}: serving the .pth gave rc "
                                  f"{rc}, {len(preds)} predictions")
+        if stream:
+            from picklebot_tpu_torch.convert import load_pth
+            from picklebot_tpu_torch.core.policy import DtypePolicy
+            model = load_pth(summary["checkpoint"], stream_model(label))
+            clip = np.random.RandomState(4).randint(
+                0, 256, (32, 224, 224, 3), np.uint8)
+            records = streamed(model.cuda().eval(), clip, 4,
+                               DtypePolicy.bf16())
+            check_records(f"train {label} .pth", records, 32, 4)
     res = {"phase": "train", "model": label, "launches": launches,
            "launches_per_microbatch": per_micro,
            "launches_per_eval_batch": per_eval, "microbatches": n_micro,
            "eval_batches": n_eval, "train_losses": losses,
            "val_loss": summary["final_val_loss"], "cli_wall_s": wall,
-           "pth_served": len(preds), "seconds": time.perf_counter() - t_start}
+           "pth_served": len(preds),
+           "pth_streamed": len(records) if stream else None,
+           "seconds": time.perf_counter() - t_start}
     emit(res)
     return res
 
@@ -1923,14 +2271,14 @@ def phase_train_timing(label, make_model, feats, x, labels, gpu_line,
     step_ms = (time.perf_counter() - t0) / reps * 1e3
     peak = torch.cuda.max_memory_allocated()
 
-    def timed_steps():
+    def timed_steps(n=reps):
         step(0, f, lb)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(reps):
+        for _ in range(n):
             step(0, f, lb)
         torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / reps * 1e3
+        return (time.perf_counter() - t0) / n * 1e3
     lbl = torch.as_tensor(labels, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     model.train()
@@ -1956,9 +2304,9 @@ def phase_train_timing(label, make_model, feats, x, labels, gpu_line,
                 - lib_fwd}
         res["train_step_ms_again"] = timed_steps()
         res["by_packed_min_seq"] = by_packed_min_seq(lambda: {
-            "train_step_ms": timed_steps(),
+            "train_step_ms": timed_steps(TRAIN_TURN_REPS),
             "forward_backward_ms": time_ms(lambda: forward().backward(),
-                                           reps)})
+                                           TRAIN_TURN_REPS)})
     emit(res)
     res["profile"] = profile_run(f"{label} train step",
                                  lambda: step(0, f, lb), "train_profile")
@@ -2104,7 +2452,10 @@ def parse_args(argv):
         "kernel's rows alone), flash (the flash kernels' rows alone, "
         "forward and backward), serve, train (the CLI runs, the attention "
         "backends, the gradients against the plain path), timing (the "
-        "train-step timings). A partial run prints no kernels summary")
+        "train-step timings), stream (serve --stream's models: whole "
+        "clips, chunks against the whole clip, causality, chunk latency, "
+        "MobileNetLarge2D's CLI run). A partial run prints no kernels "
+        "summary")
     return ap.parse_args(argv)
 
 
@@ -2177,7 +2528,7 @@ def main(argv=None):
             ("fwd_bf16_kernel", "dq_bf16_kernel", "dkv_bf16_kernel"))
     if sass:
         seconds["kernels"] = time.perf_counter() - t0
-    if selected("serve") or selected("train") or selected("timing"):
+    if any(selected(p) for p in ("serve", "train", "timing", "stream")):
         feats, x = clip_batch()
     if selected("serve"):
         t0 = time.perf_counter()
@@ -2198,7 +2549,6 @@ def main(argv=None):
                          ("small3d", small), ("movinet", movinet)):
             seconds[f"profile_{key}"] = res["profile"]["seconds"]
 
-    import numpy as np
     counters = all_counters()
     labels = np.arange(8) % 13
     train = {}
@@ -2243,6 +2593,11 @@ def main(argv=None):
                                 ("MoViNetA2", movinet_a2))}
         seconds["train_timing"] = sum(t["seconds"]
                                       for t in train["timing"].values())
+    stream = None
+    if selected("stream"):
+        stream = phase_stream(gpu_line, feats, x, counters)
+        seconds.update({f"stream_{k}": v["seconds"]
+                        for k, v in stream.items() if isinstance(v, dict)})
     seconds["total"] = time.perf_counter() - T_START
     emit({"phase": "seconds", **seconds})
 
@@ -2253,7 +2608,7 @@ def main(argv=None):
               "folded_conv": conv,
               "serve": {"MobileNetLarge3D": large, "MobileViT-s": vit,
                         "MobileNetSmall3D": small, "MoViNetA2": movinet},
-              "train": train}
+              "train": train, "stream": stream}
     if only:
         skipped = [p for p in PHASES if not selected(p)
                    and not (p in ("fused", "conv", "flash")

@@ -5,10 +5,11 @@ package's variables.
 checkpoint, or one written by the JAX package's ``save_pth``) with
 ``strict=True``. ``state_dict_from_jax`` turns the JAX package's flattened
 variables, given as numpy arrays, into the port's state dict; it carries
-its own copy of the MobileNet3D (Large and Small), MobileViT and MoViNetA2
-key tables and the layout rules of ``picklebot_tpu/train/key_maps.py`` and
-``checkpoint.py`` (conv (k..., I, O) -> (O, I, k...), 2-D linear (I, O) ->
-(O, I), BN statistics as state only).
+its own copy of the key tables of the seven ported models and the layout
+rules of ``picklebot_tpu/train/key_maps.py`` and ``checkpoint.py`` (conv
+(k..., I, O) -> (O, I, k...), 2-D linear and LSTM (I, O) -> (O, I), a 1x1
+conv kept as a matrix -> (O, I, 1, 1, 1), or (O, I, 1, 1) in the 2-D
+models, BN statistics as state only).
 """
 
 from __future__ import annotations
@@ -36,6 +37,19 @@ _MOVINET_RULES = (
     (r"^fc1_bn\.", "classifier.3."), (r"^fc1\.", "classifier.2."),
     (r"^fc2\.", "classifier.6."),
 )
+# MoViNetA2Stream (key_maps.py movinet_stream_key_map, inverted): the JAX
+# model nests the offline one under "net" and each causal depthwise conv
+# under "conv"; the torch keys are the offline model's
+_MOVINET_STREAM_RULES = (
+    (r"^net\.", ""), (r"^(block\d+\.\d+)\.conv\.conv\.", r"\1.conv."),
+) + _MOVINET_RULES
+# MobileNetLarge2D / Small2D (key_maps.py _MOBILENET2D_TABLE, inverted)
+_MOBILENET2D_RULES = (
+    (r"^block1\.conv\.", "block1.0."), (r"^block1\.bn\.", "block1.1."),
+    (r"^b6_conv\.", "block6.0."), (r"^b6_bn\.", "block6.1."),
+    (r"^b4_conv\.", "block4.0."), (r"^b4_se\.", "block4.1."),
+    (r"^b4_bn\.", "block4.2."), (r"^classifier\.", "classifier.0."),
+)
 # MobileViT (key_maps.py mobilevit_key_map, inverted): conv_*_bn stacks
 # are Sequential(conv, bn, silu), transformer layers ModuleList(attention,
 # feedforward), the head lives in to_logits
@@ -50,12 +64,17 @@ _MOBILEVIT_RULES = (
     (r"\.ffs\.(\d+)\.fc1\.", r".layers.\1.1.net.0."),
     (r"\.ffs\.(\d+)\.fc2\.", r".layers.\1.1.net.3."),
 )
-# torch keys declared as 1x1x1 Conv3d weights where JAX keeps a matrix
+# torch keys declared as 1x1 conv weights where JAX keeps a matrix:
+# Conv3d (O, I, 1, 1, 1), or Conv2d (O, I, 1, 1) in the 2-D models
 _CONV_MATRIX = re.compile(r"(classifier\.[13]|.*\.se\.[13])\.weight")
+_CONV2D_MODELS = ("MobileNetLarge2D", "MobileNetSmall2D")
 
 KEY_RULES = {"MobileNetLarge3D": _MOBILENET3D_RULES,
              "MobileNetSmall3D": _MOBILENET3D_RULES,
-             "MobileViT": _MOBILEVIT_RULES, "MoViNetA2": _MOVINET_RULES}
+             "MobileViT": _MOBILEVIT_RULES, "MoViNetA2": _MOVINET_RULES,
+             "MoViNetA2Stream": _MOVINET_STREAM_RULES,
+             "MobileNetLarge2D": _MOBILENET2D_RULES,
+             "MobileNetSmall2D": _MOBILENET2D_RULES}
 
 
 def _torch_key(path: str, is_state: bool, model_name: str) -> str:
@@ -71,19 +90,24 @@ def _torch_key(path: str, is_state: bool, model_name: str) -> str:
         idx = {"1": "1", "2": "3"}[leaf[1]]
         kind = "weight" if leaf[0] == "w" else "bias"
         return f"{head}.se.{idx}.{kind}"
+    lstm = re.fullmatch(r"([wb])_((?:ih|hh)_l\d+)", leaf)
+    if lstm:                                     # w_ih_l0 -> weight_ih_l0
+        return f"{head}." + {"w": "weight", "b": "bias"}[lstm[1]] + \
+            f"_{lstm[2]}"
     return f"{head}." + {"w": "weight", "b": "bias", "scale": "weight",
                          "bias": "bias"}[leaf]
 
 
-def _torch_layout(v: np.ndarray, torch_key: str) -> np.ndarray:
+def _torch_layout(v: np.ndarray, torch_key: str,
+                  conv_rank: int) -> np.ndarray:
     v = np.array(v, np.float32, copy=True)   # never alias the caller's
     if v.ndim >= 3:                          # conv (k..., I, O) -> (O, I, k...)
         return np.ascontiguousarray(
             np.transpose(v, (v.ndim - 1, v.ndim - 2) + tuple(
                 range(v.ndim - 2))))
-    if v.ndim == 2:                          # dense (I, O) -> (O, I[, 1, 1, 1])
+    if v.ndim == 2:                          # dense (I, O) -> (O, I[, 1...])
         vt = np.ascontiguousarray(v.T)
-        return (vt.reshape(vt.shape + (1, 1, 1))
+        return (vt.reshape(vt.shape + (1,) * (conv_rank - 2))
                 if _CONV_MATRIX.fullmatch(torch_key) else vt)
     return v
 
@@ -96,9 +120,11 @@ def state_dict_from_jax(flat_params: Dict[str, np.ndarray],
     layouts, ``num_batches_tracked`` included. Every tensor owns a copy
     of its data."""
     out: Dict[str, torch.Tensor] = {}
+    conv_rank = 4 if model_name in _CONV2D_MODELS else 5
     for path, v in flat_params.items():
         tk = _torch_key(path, False, model_name)
-        out[tk] = torch.from_numpy(_torch_layout(np.asarray(v), tk))
+        out[tk] = torch.from_numpy(_torch_layout(np.asarray(v), tk,
+                                                 conv_rank))
     for path, v in flat_state.items():
         tk = _torch_key(path, True, model_name)
         out[tk] = torch.from_numpy(np.array(v, np.float32, copy=True))

@@ -1,23 +1,29 @@
 """Model registry of the port: config -> model.
 
-Counterpart of ``picklebot_tpu/models/registry.py``. The four models the
-reference's trainer registers are ported: MobileNetLarge3D,
-MobileNetSmall3D, MobileViT (v1) and MoViNetA2 (offline). ROADMAP.md lists
-the slices of the others (MoViNetA2Stream, MobileViTV2, the 2D+LSTM
-models).
+Counterpart of ``picklebot_tpu/models/registry.py``. Seven of its eight
+names are ported: the four models the reference's trainer registers
+(MobileNetLarge3D, MobileNetSmall3D, MobileViT v1, MoViNetA2 offline) and
+the three that ``serve --stream`` serves (MoViNetA2Stream,
+MobileNetLarge2D, MobileNetSmall2D). MobileViTV2 is ROADMAP.md's item A11.
 """
 
 from __future__ import annotations
 
+from picklebot_tpu_torch.models.mobilenet2d_lstm import (MobileNetLarge2D,
+                                                         MobileNetSmall2D)
 from picklebot_tpu_torch.models.mobilenet3d import (MobileNetLarge3D,
                                                     MobileNetSmall3D)
 from picklebot_tpu_torch.models.mobilevit import MobileViT
-from picklebot_tpu_torch.models.movinet import MoViNetA2
+from picklebot_tpu_torch.models.movinet import MoViNetA2, MoViNetA2Stream
 
-PORTED = ("MobileNetLarge3D", "MobileNetSmall3D", "MobileViT", "MoViNetA2")
 # the models built from num_classes and the seed alone
 _PLAIN = {"MobileNetLarge3D": MobileNetLarge3D,
-          "MobileNetSmall3D": MobileNetSmall3D, "MoViNetA2": MoViNetA2}
+          "MobileNetSmall3D": MobileNetSmall3D, "MoViNetA2": MoViNetA2,
+          "MoViNetA2Stream": MoViNetA2Stream,
+          "MobileNetLarge2D": MobileNetLarge2D,
+          "MobileNetSmall2D": MobileNetSmall2D}
+PORTED = ("MobileNetLarge3D", "MobileNetSmall3D", "MobileViT", "MoViNetA2",
+          "MoViNetA2Stream", "MobileNetLarge2D", "MobileNetSmall2D")
 
 
 def _mobilevit(cfg):
@@ -42,11 +48,10 @@ def initialize_model(cfg):
     """Build the config's model with weights made from ``cfg.seed``. The
     JAX package's fold options (early_fold, fold_span, space_to_depth)
     change its execution only and are ignored here."""
-    if cfg.model_name == "MoViNetA2Stream":
+    if cfg.model_name == "MobileViTV2":
         raise NotImplementedError(
-            "MoViNetA2Stream (causal convs, stream buffers, serve --stream) "
-            "is not ported to PyTorch yet; MoViNetA2 is the offline model "
-            "(ROADMAP.md, queue A, item A12b)")
+            "MobileViTV2 (LinearSelfAttention, GroupNorm) is not ported to "
+            "PyTorch yet (ROADMAP.md, queue A, item A11)")
     if cfg.model_name not in PORTED:
         raise NotImplementedError(
             f"{cfg.model_name} is not ported to PyTorch yet (ported: "

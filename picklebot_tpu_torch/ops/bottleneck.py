@@ -1,7 +1,8 @@
-"""Inverted-bottleneck block, channels-last.
+"""Inverted-bottleneck blocks, channels-last.
 
-Counterpart of ``Bottleneck3D`` in ``picklebot_tpu/ops/bottleneck.py``, with
-the reference's quirks kept for checkpoint parity:
+Counterpart of ``Bottleneck3D`` and ``Bottleneck2D`` in
+``picklebot_tpu/ops/bottleneck.py``. ``Bottleneck3D`` keeps the
+reference's quirks for checkpoint parity:
 
   * the depthwise kernel is (1, k, k), but the integer stride and the
     padding k//2 act on T as well (T grows by 2*(k//2) on stride-1 blocks);
@@ -15,6 +16,13 @@ the fused kernels of ``ops/fused_bottleneck.py`` (in training through its
 CPU, or with ``kernels=False``, it runs the plain chain of modules. The
 folded forwards of the JAX package (``early_fold``, ``fold_span``) are
 not ported.
+
+``Bottleneck2D`` works on frames (B, H, W, C): expand 1x1 -> (k, k)
+depthwise with a true 2-D stride and padding k//2 -> optional SE ->
+project 1x1 -> BN -> nonlinearity, bias-free convs, no residual. The
+reference builds a Dropout2d it never calls, so there is none. It is the
+plain chain of modules only, as in the JAX package, whose forward reaches
+no kernel.
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ from typing import Callable
 from torch import nn
 
 from picklebot_tpu_torch.ops import activations as act
-from picklebot_tpu_torch.ops.conv import Conv3d
+from picklebot_tpu_torch.ops.conv import Conv2d, Conv3d
 from picklebot_tpu_torch.ops.fused_bottleneck import fused_bottleneck
 from picklebot_tpu_torch.ops.linear import ChannelDropout
 from picklebot_tpu_torch.ops.norm import BatchNorm
@@ -84,3 +92,26 @@ class Bottleneck3D(nn.Module):
                 x = self.squeeze_excite(x)
             x = self.pointwise_conv2(x)
         return self.dropout(self.nonlinearity(self.batchnorm(x)))
+
+
+class Bottleneck2D(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int,
+                 expanded_channels: int, stride: int = 1,
+                 use_se: bool = False, kernel_size: int = 3,
+                 nonlinearity: Callable = act.hardswish):
+        super().__init__()
+        e = expanded_channels
+        self.pointwise_conv1 = Conv2d(in_channels, e, 1, bias=False)
+        self.depthwise_conv = Conv2d(e, e, kernel_size, stride=stride,
+                                     padding=kernel_size // 2, groups=e,
+                                     bias=False)
+        self.squeeze_excite = SEBlock(e, rank=4) if use_se else None
+        self.pointwise_conv2 = Conv2d(e, out_channels, 1, bias=False)
+        self.batchnorm = BatchNorm(out_channels)
+        self.nonlinearity = nonlinearity
+
+    def forward(self, x):
+        x = self.depthwise_conv(self.pointwise_conv1(x))
+        if self.squeeze_excite is not None:
+            x = self.squeeze_excite(x)
+        return self.nonlinearity(self.batchnorm(self.pointwise_conv2(x)))

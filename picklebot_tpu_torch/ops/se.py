@@ -3,7 +3,9 @@
 Counterpart of ``picklebot_tpu/ops/se.py``: global mean pool (in f32) ->
 1x1 conv E -> E/4 -> relu -> 1x1 conv E/4 -> E -> hardsigmoid -> channel
 scale, the MLP in the compute dtype. The two convs keep the reference's
-keys ``se.1`` and ``se.3`` and its (O, I, 1, 1, 1) weights.
+keys ``se.1`` and ``se.3`` and its weights: (O, I, 1, 1, 1) for the 3-D
+models' Conv3d, (O, I, 1, 1) for the 2-D models' Conv2d (``rank`` 4).
+Rank-agnostic: it pools every axis between batch and channel.
 """
 
 from __future__ import annotations
@@ -15,12 +17,13 @@ from picklebot_tpu_torch.ops.linear import Dense
 
 
 class SEBlock(nn.Module):
-    def __init__(self, channels: int, reduction: int = 4):
+    def __init__(self, channels: int, reduction: int = 4, rank: int = 5):
         super().__init__()
         self.channels = channels
         self.reduced = channels // reduction
-        self.se = nn.ModuleDict({"1": Dense(channels, self.reduced),
-                                 "3": Dense(self.reduced, channels)})
+        self.se = nn.ModuleDict({
+            "1": Dense(channels, self.reduced, rank=rank),
+            "3": Dense(self.reduced, channels, rank=rank)})
 
     def mlp_weights(self):
         """(w1 (E, E/4), b1, w2 (E/4, E), b2) in the JAX package's layout."""

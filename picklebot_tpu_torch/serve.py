@@ -7,10 +7,20 @@ lines it prints are the same.
       clip1.mp4 clip2.mp4 ...
   python -m picklebot_tpu_torch.serve <config.json> --checkpoint w.pth \
       --csv annotations.csv [--limit N]    # accuracy over a CSV
+  python -m picklebot_tpu_torch.serve <config.json> --checkpoint w.pth \
+      --stream [--chunk N] clip.mp4        # online, one line per chunk
+
+``--stream`` serves the online models (MoViNetA2Stream with its stream
+buffers, MobileNetLarge2D / MobileNetSmall2D with their LSTM state): each
+clip runs in ``--chunk``-frame pieces (default 1) with the state carried
+from one to the next, one JSON line per piece, ``frame`` the frames
+consumed so far; a ragged tail runs frame by frame and gives one last
+line. Without ``--stream`` these models classify whole clips from a zero
+state.
 
 It runs on ``--device cuda`` (the default; an error if there is no card)
-or ``--device cpu``. ``--http``, ``--stream``, ``--exported``,
-``--data-parallel`` and ``--ema`` are queued in ROADMAP.md.
+or ``--device cpu``. ``--http``, ``--exported``, ``--data-parallel`` and
+``--ema`` are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -62,6 +72,44 @@ def pad_batch_to(feats, target):
     return feats, b
 
 
+STREAM_MODELS = ("MoViNetA2Stream", "MobileNetLarge2D", "MobileNetSmall2D")
+
+
+def stream_clip(model, frames, chunk, policy, device, criterion,
+                num_classes, mean=None, std=None, input_size=None):
+    """Online prediction over one decoded clip: uint8 frames (T, H, W, 3)
+    go through ``model`` (one of STREAM_MODELS, in eval mode on
+    ``device``) in ``chunk``-frame pieces with the carried state starting
+    at zero in the compute dtype. Yields, per piece, its record ({"frame",
+    "pred", "label", "confidence"}, frame = frames consumed so far) and its
+    f32 logits (1, num_classes).
+
+    A ragged tail runs frame by frame and yields once, at frame = T, as in
+    the JAX server: MoViNetA2Stream's SE blocks pool over the frames of the
+    piece at hand, so a tail run as one piece would give other logits."""
+    import torch
+
+    from picklebot_tpu_torch.train.step import preprocess
+
+    dtype = policy.compute_dtype
+    t_total, h, w = frames.shape[:3]
+    tail = t_total % chunk
+    pieces = [(s, chunk) for s in range(0, t_total - tail, chunk)]
+    pieces += [(s, 1) for s in range(t_total - tail, t_total)]
+    with torch.inference_mode(), policy.precision():
+        carry = model.init_stream(1, h, w, dtype, device)
+        for start, size in pieces:
+            piece = np.ascontiguousarray(frames[None, start:start + size])
+            x = preprocess(torch.from_numpy(piece).to(device), dtype, mean,
+                           std, input_size)
+            logits, carry = model(x, carry)
+            if start < t_total - tail or start == t_total - 1:
+                # every whole chunk, and the tail's last frame
+                logits = logits.float().cpu().numpy()
+                rec = decode_logits(logits, criterion, num_classes)[0]
+                yield {"frame": start + size, **rec}, logits
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description="Classify pitch clips")
     p.add_argument("config")
@@ -72,6 +120,11 @@ def main(argv=None):
                    help="annotation csv: evaluate accuracy instead")
     p.add_argument("--limit", type=int, default=None)
     p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--stream", action="store_true",
+                   help="online mode: carried state, one prediction per "
+                        "chunk (MoViNetA2Stream / MobileNet*2D)")
+    p.add_argument("--chunk", type=int, default=1,
+                   help="frames per streaming step (--stream)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     args = p.parse_args(argv)
@@ -93,13 +146,35 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     config = replicated_equivalent(load_config(args.config))
+    if args.stream:
+        # streaming is a CLI-only mode (per-clip carried state)
+        if args.csv is not None:
+            print("--stream does not support --csv (drop --stream for "
+                  "those modes)", file=sys.stderr)
+            return 1
+        if config.model_name not in STREAM_MODELS:
+            print(f"--stream needs one of {STREAM_MODELS} "
+                  f"(got {config.model_name})", file=sys.stderr)
+            return 1
+        if not args.clips:
+            print("no clips given", file=sys.stderr)
+            return 1
     model = load_pth(args.checkpoint, initialize_model(config)).to(device)
     policy = DtypePolicy.bf16() if config.use_autocast else DtypePolicy.f32()
-    predict = make_predict_fn(
-        model, policy,
-        mean=config.mean if config.apply_mean_std else None,
-        std=config.std if config.apply_mean_std else None,
-        input_size=config.input_size, device=device)
+    mean = config.mean if config.apply_mean_std else None
+    std = config.std if config.apply_mean_std else None
+    predict = make_predict_fn(model, policy, mean=mean, std=std,
+                              input_size=config.input_size, device=device)
+
+    if args.stream:
+        for clip in args.clips:
+            frames = decode_opencv(clip, config.sample_fps)
+            for rec, _ in stream_clip(model, frames, args.chunk, policy,
+                                      device, config.criterion,
+                                      config.num_classes, mean=mean,
+                                      std=std, input_size=config.input_size):
+                print(json.dumps({"clip": clip, **rec}))
+        return 0
 
     def predict_records(batch_clips):
         """clips -> per-clip prediction dicts. Clips of different (H, W)

@@ -80,7 +80,14 @@ UNPORTED = {
 
 def check_ported(config: Config):
     """Raise NotImplementedError for the first option set in ``config``
-    that this trainer does not port."""
+    that this trainer does not port, and ValueError for MoViNetA2Stream,
+    which neither package trains (the JAX train step passes its forward
+    no carry)."""
+    if config.model_name == "MoViNetA2Stream":
+        raise ValueError(
+            "MoViNetA2Stream is a serving model: the clip trainer passes no "
+            "stream carry. Train MoViNetA2 (the same parameters and keys) "
+            "and serve its .pth as MoViNetA2Stream")
     for name, (is_set, item) in UNPORTED.items():
         if is_set(config):
             raise NotImplementedError(

@@ -114,16 +114,16 @@ def check_eval_logits(name, jax_model, port, rng, bf16):
                                atol=tol * np.abs(want).max())
 
 
-def train_step_against_jax(name, jax_model, port, seed=1234):
-    """One f32 train step (A microbatches of B clips, dropout p = 0) in
-    both packages from the same weights and uint8 batch; returns the JAX
-    results in the port's keys, the port after its step and its
-    metrics."""
+def train_step_against_jax(name, jax_model, port, seed=1234, clip=CLIP):
+    """One f32 train step (A microbatches of B clips of shape ``clip``,
+    dropout p = 0) in both packages from the same weights and uint8
+    batch; returns the JAX results in the port's keys, the port after its
+    step and its metrics."""
     rng = np.random.RandomState(seed)
     v = _perturb_batchnorm(jax_model.init(0), rng)
     port_from_jax(name, v, port)
     _no_dropout(jax_model, port)
-    feats = rng.randint(0, 256, (A, B) + CLIP).astype(np.uint8)
+    feats = rng.randint(0, 256, (A, B) + clip).astype(np.uint8)
     labels = rng.randint(0, 13, (A, B))
     losses, grads, state, _ = _jax_step(jax_model, v, feats, labels)
     want = {"grads": state_dict_from_jax(flatten_dict(grads), {}, name),
@@ -205,11 +205,12 @@ def check_serve_matches_jax_serve(tmp_path, capsys, name, jax_model, port):
 
 
 def check_cli_trains_and_both_packages_load_the_pth(tmp_path, name,
-                                                    jax_model):
+                                                    jax_model, **extra):
     """``python -m picklebot_tpu_torch.cli cfg.json --device cpu --steps
-    2`` on synthetic clips: finite losses, and a ``.pth`` that loads
-    strictly into the port and into the JAX package."""
-    cfg_path = write_config(tmp_path, name)
+    2`` on synthetic clips (``extra`` overrides config keys): finite
+    losses, and a ``.pth`` that loads strictly into the port and into the
+    JAX package."""
+    cfg_path = write_config(tmp_path, name, **extra)
     summary = cli.main([cfg_path, "--device", "cpu", "--steps", "2"])
     assert len(summary["train_losses"]) == 4 and summary["global_step"] == 4
     assert all(math.isfinite(v) for v in summary["train_losses"])

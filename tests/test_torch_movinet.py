@@ -15,6 +15,7 @@ import torch
 from picklebot_tpu.core.module import DtypePolicy
 from picklebot_tpu.models.movinet import MoViNetA2 as JaxMoViNetA2
 from picklebot_tpu.models.movinet import MoviNetBottleneck as JaxBottleneck
+from picklebot_tpu_torch.models.mobilevit import MOBILEVIT_CONFIGS
 from picklebot_tpu_torch.models.movinet import MoViNetA2, MoviNetBottleneck
 from picklebot_tpu_torch.models.registry import PORTED, initialize_model
 from picklebot_tpu_torch.ops.conv import Conv3d
@@ -139,11 +140,15 @@ def test_cli_trains_on_cpu_and_both_packages_load_the_pth(tmp_path):
 
 
 def test_registry_builds_the_four_models_and_refuses_the_stream_variant():
+    """Kept under its first name: the registry now builds the seven ported
+    models, the stream variant among them, and refuses MobileViTV2."""
     assert PORTED == ("MobileNetLarge3D", "MobileNetSmall3D", "MobileViT",
-                      "MoViNetA2")
-    for name in ("MobileNetSmall3D", "MoViNetA2"):
-        model = initialize_model(Config(model_name=name,
-                                        num_classes=13).validate())
+                      "MoViNetA2", "MoViNetA2Stream", "MobileNetLarge2D",
+                      "MobileNetSmall2D")
+    for name in PORTED:
+        extra = MOBILEVIT_CONFIGS["xxs"] if name == "MobileViT" else {}
+        model = initialize_model(Config(model_name=name, num_classes=13,
+                                        **extra).validate())
         assert type(model).__name__ == name and model.num_classes == 13
-    with pytest.raises(NotImplementedError, match="A12b"):
-        initialize_model(Config(model_name="MoViNetA2Stream").validate())
+    with pytest.raises(NotImplementedError, match="A11"):
+        initialize_model(Config(model_name="MobileViTV2").validate())
