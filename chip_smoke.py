@@ -6,9 +6,10 @@
     python3 chip_smoke.py --only conv          # the conv kernel's rows
     python3 chip_smoke.py --only flash         # the flash kernels' rows
     python3 chip_smoke.py --only stream        # serve --stream's models
+    python3 chip_smoke.py --only v2 bench      # MobileViTV2; the bench entry
     python3 chip_smoke.py --only kernels serve # or any of kernels, fused,
                                                # conv, flash, serve, train,
-                                               # timing, stream
+                                               # timing, stream, v2, bench
 
 Phases, in order (each prints JSON lines; any failure exits non-zero; a
 run with --only says on a JSON line which phases it skipped and prints no
@@ -101,7 +102,21 @@ kernels summary):
               config derived from mobilenet_large2d_50k.json (cut as the
               train phase's), its .pth streamed; train() refusing
               MoViNetA2Stream
-  8. summary  {"kernels": [...]}, the card line, and last
+  8. v2       MobileViTV2 at full width (13 classes, seeded weights,
+              BatchNorms calibrated on one batch) on uint8 256x256 images,
+              which runs no hand-written kernel (exactly zero launches over
+              the phase): at bs 8 the card's f32 logits (TF32 off) against
+              the CPU's within 1e-4 of max|logit|, bf16 against the card's
+              f32 (5% and the argmax rule), one f32 train step against the
+              same step on the CPU (loss 1e-4, every gradient 1% rms and
+              cosine 0.9999); at bs 32 the forward (CUDA events), the bf16
+              train step (host clock, data on the card), images/s, peak
+              memory, and a trace of one forward and one train step
+  9. bench    python -m picklebot_tpu_torch.bench in this process:
+              MobileNetLarge3D infer at bs 16 (the fused main kernel must
+              run) and MobileViTV2 train at bs 32, 256x256 (no launch);
+              each prints its JSON line with a value above 0 and the card
+ 10. summary  {"kernels": [...]}, the card line, and last
               {"ok": true, "device": ...}
 Per-shape numbers also go to chiprun_out/chip_smoke.json. Without CUDA it
 exits with code 2 and prints no result. Imports nothing of JAX.
@@ -277,9 +292,25 @@ STREAM_BF16_FACTOR = 2.0
 # bit-equal (the same kernels on the same inputs); 1e-6 of max|logit| is
 # allowed in case cuDNN picks its algorithm per call
 CAUSAL_REL_TOL = 1e-6
+# MobileViTV2 (the v2 phase): full width, 13 classes, uint8 256x256
+# images; the checks at bs 8 (card f32 with TF32 off against the CPU's f32
+# within 1e-4 of max|logit|, one f32 train step's loss within
+# F32_LOSS_REL_TOL and gradients within GRAD_F32_RMS_TOL / GRAD_F32_MIN_COS),
+# the timings at bs 32
+V2_SIZE = 256
+V2_CHECK_BATCH, V2_TIMED_BATCH = 8, 32
+V2_F32_LOGIT_TOL = 1e-4
+# the bench phase: picklebot_tpu_torch.bench in this process, so that the
+# launch counts of each run can be read
+BENCH_RUNS = (
+    ["--model", "MobileNetLarge3D", "--mode", "infer", "--batch", "16",
+     "--steps", "10"],
+    ["--model", "MobileViTV2", "--mode", "train", "--batch", "32",
+     "--size", "256", "--steps", "5"],
+)
 # what --only can pick; with no --only every phase runs
 PHASES = ("kernels", "fused", "conv", "flash", "serve", "train", "timing",
-          "stream")
+          "stream", "v2", "bench")
 
 
 def emit(obj):
@@ -2019,6 +2050,197 @@ def phase_stream(gpu_line, feats, x, counters):
 
 
 # --------------------------------------------------------------------------
+# MobileViTV2 and the bench entry
+# --------------------------------------------------------------------------
+
+def mobilevitv2():
+    from picklebot_tpu_torch.models.mobilevitv2 import MobileViTV2
+    return MobileViTV2(num_classes=13, seed=0)
+
+
+def image_batch(batch, seed):
+    """uint8 (batch, 256, 256, 3) images from a numpy seed."""
+    return np.random.RandomState(seed).randint(
+        0, 256, (batch, V2_SIZE, V2_SIZE, 3), np.uint8)
+
+
+def f32_train_grads(model, feats, labels, device):
+    """One f32 train step (AdamW, one microbatch) of a copy of ``model``
+    on ``device``: the loss and every parameter's gradient, on the CPU."""
+    import copy
+    from picklebot_tpu_torch.core.policy import DtypePolicy
+    from picklebot_tpu_torch.train.optim import AdamW
+    from picklebot_tpu_torch.train.step import make_train_step
+    m = copy.deepcopy(model).to(device)
+    step = make_train_step(m, AdamW(m.parameters()), "CE",
+                           lambda epoch: 3e-4, DtypePolicy.f32(),
+                           device=device)
+    metrics = step(0, feats[None], labels[None])
+    return float(metrics["loss"][0]), {
+        n: p.grad.float().cpu() for n, p in m.named_parameters()}
+
+
+def grads_close(label, truth, got):
+    """Every leaf of ``got`` within GRAD_F32_RMS_TOL (rms) and
+    GRAD_F32_MIN_COS of ``truth``; a leaf whose reference is below the
+    noise floor (GRAD_NOISE_FLOOR of the median leaf's rms) only within
+    that floor. Returns the worst leaf's numbers."""
+    import torch
+
+    def rms(t):
+        return t.pow(2).mean().sqrt().item()
+    scale = {n: rms(g) for n, g in truth.items()}
+    floor = GRAD_NOISE_FLOOR * sorted(scale.values())[len(scale) // 2]
+    bad, stats, noise = [], {}, []
+    for n, ref in truth.items():
+        diff = rms(got[n] - ref)
+        if scale[n] < floor:
+            noise.append(n)
+            if diff > floor:
+                bad.append((n, "noise leaf", diff))
+            continue
+        st = stats[n] = {"rms": diff / scale[n], "cos": torch.nn.functional
+                         .cosine_similarity(got[n].flatten(), ref.flatten(),
+                                            dim=0).item()}
+        if st["rms"] > GRAD_F32_RMS_TOL or st["cos"] < GRAD_F32_MIN_COS:
+            bad.append((n, st))
+    if bad:
+        raise AssertionError(f"{label} gradients: {bad[:6]}")
+    return {"leaves": len(truth), "noise_leaves": noise,
+            "worst_rms": max(v["rms"] for v in stats.values()),
+            "worst_cos": min(v["cos"] for v in stats.values())}
+
+
+def phase_v2(gpu_line, counters):
+    """MobileViTV2 at full width on 256x256 images, which runs no
+    hand-written kernel: BatchNorms calibrated on one bs-8 batch; f32
+    logits (TF32 off) against the CPU's, bf16 against the card's f32; one
+    f32 train step against the same step on the CPU; the bs-32 forward
+    (CUDA events) and bf16 train step (host clock, data on the card),
+    peak memory and traces of each. Every launch count must stay 0."""
+    import copy
+    import torch
+    from picklebot_tpu_torch.core.policy import DtypePolicy
+    from picklebot_tpu_torch.train.step import preprocess
+    t_start = time.perf_counter()
+    model = mobilevitv2().cuda().eval()
+    feats = image_batch(V2_CHECK_BATCH, 0)
+    labels = np.arange(V2_CHECK_BATCH) % 13
+    x = preprocess(torch.from_numpy(feats).cuda(), torch.float32)
+    calibrate_batchnorm(model, x)
+    zero_counters(counters)
+    with torch.inference_mode():
+        with DtypePolicy.f32().precision():
+            card_f32 = model(x).float()
+        card_bf16 = model(x.bfloat16()).float()
+    cpu_model = copy.deepcopy(model).cpu()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        cpu_f32 = cpu_model(x.cpu())
+    cpu_forward_s = time.perf_counter() - t0
+    if tuple(card_f32.shape) != (V2_CHECK_BATCH, 13) or not bool(
+            torch.isfinite(card_f32).all()):
+        raise AssertionError(f"MobileViTV2 logits: shape "
+                             f"{tuple(card_f32.shape)}, or not finite")
+    f32_err = (card_f32.cpu() - cpu_f32).abs().max().item()
+    f32_tol = V2_F32_LOGIT_TOL * cpu_f32.abs().max().item()
+    if f32_err > f32_tol:
+        raise AssertionError(f"MobileViTV2 f32 logits, card vs CPU: max abs "
+                             f"err {f32_err} (tol {f32_tol})")
+    bf16 = logits_against_plain("MobileViTV2 bf16 vs card f32", card_bf16,
+                                card_f32)
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = f32_train_grads(cpu_model, feats, labels, "cpu")
+    cpu_step_s = time.perf_counter() - t0
+    card_loss, card_grads = f32_train_grads(
+        model, torch.from_numpy(feats).cuda(),
+        torch.as_tensor(labels, device="cuda"), "cuda")
+    if abs(card_loss - cpu_loss) > F32_LOSS_REL_TOL * abs(cpu_loss):
+        raise AssertionError(f"MobileViTV2 f32 train loss: card {card_loss}"
+                             f", CPU {cpu_loss}")
+    grads = grads_close("MobileViTV2 f32 train step, card vs CPU",
+                        cpu_grads, card_grads)
+    checks = {"phase": "v2", "model": "MobileViTV2", "batch": V2_CHECK_BATCH,
+              "image": [V2_SIZE, V2_SIZE],
+              "f32_logits_max_abs_err": f32_err, "f32_tol": f32_tol,
+              "logits_max_abs": cpu_f32.abs().max().item(),
+              "bf16_against_f32": bf16,
+              "f32_train_loss": {"card": card_loss, "cpu": cpu_loss},
+              "f32_train_grads": grads, "cpu_forward_s": cpu_forward_s,
+              "cpu_train_step_s": cpu_step_s}
+    emit(checks)
+
+    feats32 = torch.from_numpy(image_batch(V2_TIMED_BATCH, 1)).cuda()
+    x32 = preprocess(feats32, torch.bfloat16)
+
+    def forward():
+        with torch.inference_mode():
+            model(x32)
+    forward_ms = time_ms(forward, reps=10)
+    step, _ = train_step_for(mobilevitv2().cuda())
+    f = feats32[None]
+    lb = torch.as_tensor(np.arange(V2_TIMED_BATCH) % 13, device="cuda")[None]
+    for _ in range(2):
+        step(0, f, lb)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step(0, f, lb)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / reps * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    res = {"phase": "v2", "model": "MobileViTV2", "batch": V2_TIMED_BATCH,
+           "image": [V2_SIZE, V2_SIZE], "dtype": "bfloat16",
+           "forward_ms": forward_ms, "train_step_ms": step_ms,
+           "images_per_s": V2_TIMED_BATCH * 1e3 / step_ms,
+           "optimizer": "adamw8bit", "peak_memory_bytes": peak,
+           "card": gpu_line}
+    emit(res)
+    res["profile"] = profile_run("MobileViTV2 forward", forward, "v2_profile")
+    res["train_profile"] = profile_run("MobileViTV2 train step",
+                                       lambda: step(0, f, lb),
+                                       "v2_train_profile")
+    launches = read_counters(counters)
+    if launches != launches_wanted():
+        raise AssertionError(f"MobileViTV2 launched {launches}, want none")
+    res.update(checks=checks, launches=launches,
+               seconds=time.perf_counter() - t_start)
+    emit({"phase": "v2", "launches": launches, "seconds": res["seconds"]})
+    return res
+
+
+def phase_bench(counters):
+    """``picklebot_tpu_torch.bench`` in process on each of BENCH_RUNS,
+    every launch count set to 0 just before and read just after: one JSON
+    line each with a value above 0 and the card; the Large3D run on the
+    fused main kernel, the MobileViTV2 run on none."""
+    from picklebot_tpu_torch import bench
+    out = []
+    for argv in BENCH_RUNS:
+        t0 = time.perf_counter()
+        zero_counters(counters)
+        line = bench.main(argv)
+        launches = read_counters(counters)
+        model = argv[1]
+        if not line["value"] > 0 or not line["device"] or line[
+                "vs_baseline"] is not None:
+            raise AssertionError(f"bench {model}: {line}")
+        if model == "MobileNetLarge3D" and not launches["fused"]["main"]:
+            raise AssertionError(f"bench {model} launched {launches}: the "
+                                 "fused main kernel never ran")
+        if model == "MobileViTV2" and launches != launches_wanted():
+            raise AssertionError(f"bench {model} launched {launches}, want "
+                                 "none")
+        rec = {"phase": "bench", "argv": argv, "line": line,
+               "launches": launches, "seconds": time.perf_counter() - t0}
+        emit(rec)
+        out.append(rec)
+    return out
+
+
+# --------------------------------------------------------------------------
 # train
 # --------------------------------------------------------------------------
 
@@ -2454,8 +2676,9 @@ def parse_args(argv):
         "backends, the gradients against the plain path), timing (the "
         "train-step timings), stream (serve --stream's models: whole "
         "clips, chunks against the whole clip, causality, chunk latency, "
-        "MobileNetLarge2D's CLI run). A partial run prints no kernels "
-        "summary")
+        "MobileNetLarge2D's CLI run), v2 (MobileViTV2: logits and a train "
+        "step against the CPU, timings, traces), bench (the port's bench "
+        "entry on two runs). A partial run prints no kernels summary")
     return ap.parse_args(argv)
 
 
@@ -2598,6 +2821,14 @@ def main(argv=None):
         stream = phase_stream(gpu_line, feats, x, counters)
         seconds.update({f"stream_{k}": v["seconds"]
                         for k, v in stream.items() if isinstance(v, dict)})
+    v2 = bench_runs = None
+    if selected("v2"):
+        v2 = phase_v2(gpu_line, counters)
+        seconds["v2"] = v2["seconds"]
+    if selected("bench"):
+        t0 = time.perf_counter()
+        bench_runs = phase_bench(counters)
+        seconds["bench"] = time.perf_counter() - t0
     seconds["total"] = time.perf_counter() - T_START
     emit({"phase": "seconds", **seconds})
 
@@ -2608,7 +2839,8 @@ def main(argv=None):
               "folded_conv": conv,
               "serve": {"MobileNetLarge3D": large, "MobileViT-s": vit,
                         "MobileNetSmall3D": small, "MoViNetA2": movinet},
-              "train": train, "stream": stream}
+              "train": train, "stream": stream, "v2": v2,
+              "bench": bench_runs}
     if only:
         skipped = [p for p in PHASES if not selected(p)
                    and not (p in ("fused", "conv", "flash")

@@ -5,8 +5,8 @@ package's variables.
 checkpoint, or one written by the JAX package's ``save_pth``) with
 ``strict=True``. ``state_dict_from_jax`` turns the JAX package's flattened
 variables, given as numpy arrays, into the port's state dict; it carries
-its own copy of the key tables of the seven ported models and the layout
-rules of ``picklebot_tpu/train/key_maps.py`` and ``checkpoint.py`` (conv
+its own copy of the key tables of the eight models and the layout rules
+of ``picklebot_tpu/train/key_maps.py`` and ``checkpoint.py`` (conv
 (k..., I, O) -> (O, I, k...), 2-D linear and LSTM (I, O) -> (O, I), a 1x1
 conv kept as a matrix -> (O, I, 1, 1, 1), or (O, I, 1, 1) in the 2-D
 models, BN statistics as state only).
@@ -64,17 +64,28 @@ _MOBILEVIT_RULES = (
     (r"\.ffs\.(\d+)\.fc1\.", r".layers.\1.1.net.0."),
     (r"\.ffs\.(\d+)\.fc2\.", r".layers.\1.1.net.3."),
 )
+# MobileViTV2 (key_maps.py mobilevitv2_key_map, inverted): torch nests
+# each transformer's layers under 'layer'
+_MOBILEVITV2_RULES = (
+    (r"^(transformer\d)\.transformer\.(\d+)\.",
+     r"\1.transformer.layer.\2."),
+)
 # torch keys declared as 1x1 conv weights where JAX keeps a matrix:
-# Conv3d (O, I, 1, 1, 1), or Conv2d (O, I, 1, 1) in the 2-D models
-_CONV_MATRIX = re.compile(r"(classifier\.[13]|.*\.se\.[13])\.weight")
-_CONV2D_MODELS = ("MobileNetLarge2D", "MobileNetSmall2D")
+# Conv3d (O, I, 1, 1, 1), or Conv2d (O, I, 1, 1) in the 2-D models; in
+# MobileViTV2 the attention's and the FFN's (key_maps.py
+# mobilevitv2_export_ranks), not its top-level 3x3 conv1
+_CONV_MATRIX = re.compile(r"(classifier\.[13]|.*\.se\.[13]"
+                          r"|.*\.attention\.(qkv|out)_proj"
+                          r"|.*\.ffn\.conv[12])\.weight")
+_CONV2D_MODELS = ("MobileNetLarge2D", "MobileNetSmall2D", "MobileViTV2")
 
 KEY_RULES = {"MobileNetLarge3D": _MOBILENET3D_RULES,
              "MobileNetSmall3D": _MOBILENET3D_RULES,
              "MobileViT": _MOBILEVIT_RULES, "MoViNetA2": _MOVINET_RULES,
              "MoViNetA2Stream": _MOVINET_STREAM_RULES,
              "MobileNetLarge2D": _MOBILENET2D_RULES,
-             "MobileNetSmall2D": _MOBILENET2D_RULES}
+             "MobileNetSmall2D": _MOBILENET2D_RULES,
+             "MobileViTV2": _MOBILEVITV2_RULES}
 
 
 def _torch_key(path: str, is_state: bool, model_name: str) -> str:

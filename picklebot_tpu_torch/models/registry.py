@@ -1,10 +1,10 @@
 """Model registry of the port: config -> model.
 
-Counterpart of ``picklebot_tpu/models/registry.py``. Seven of its eight
-names are ported: the four models the reference's trainer registers
-(MobileNetLarge3D, MobileNetSmall3D, MobileViT v1, MoViNetA2 offline) and
-the three that ``serve --stream`` serves (MoViNetA2Stream,
-MobileNetLarge2D, MobileNetSmall2D). MobileViTV2 is ROADMAP.md's item A11.
+Counterpart of ``picklebot_tpu/models/registry.py``, all eight of its
+names: the four models the reference's trainer registers
+(MobileNetLarge3D, MobileNetSmall3D, MobileViT v1, MoViNetA2 offline), the
+three that ``serve --stream`` serves (MoViNetA2Stream, MobileNetLarge2D,
+MobileNetSmall2D) and the image classifier MobileViTV2.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from picklebot_tpu_torch.models.mobilenet2d_lstm import (MobileNetLarge2D,
 from picklebot_tpu_torch.models.mobilenet3d import (MobileNetLarge3D,
                                                     MobileNetSmall3D)
 from picklebot_tpu_torch.models.mobilevit import MobileViT
+from picklebot_tpu_torch.models.mobilevitv2 import MobileViTV2
 from picklebot_tpu_torch.models.movinet import MoViNetA2, MoViNetA2Stream
 
 # the models built from num_classes and the seed alone
@@ -21,9 +22,10 @@ _PLAIN = {"MobileNetLarge3D": MobileNetLarge3D,
           "MobileNetSmall3D": MobileNetSmall3D, "MoViNetA2": MoViNetA2,
           "MoViNetA2Stream": MoViNetA2Stream,
           "MobileNetLarge2D": MobileNetLarge2D,
-          "MobileNetSmall2D": MobileNetSmall2D}
+          "MobileNetSmall2D": MobileNetSmall2D, "MobileViTV2": MobileViTV2}
 PORTED = ("MobileNetLarge3D", "MobileNetSmall3D", "MobileViT", "MoViNetA2",
-          "MoViNetA2Stream", "MobileNetLarge2D", "MobileNetSmall2D")
+          "MoViNetA2Stream", "MobileNetLarge2D", "MobileNetSmall2D",
+          "MobileViTV2")
 
 
 def _mobilevit(cfg):
@@ -48,14 +50,9 @@ def initialize_model(cfg):
     """Build the config's model with weights made from ``cfg.seed``. The
     JAX package's fold options (early_fold, fold_span, space_to_depth)
     change its execution only and are ignored here."""
-    if cfg.model_name == "MobileViTV2":
-        raise NotImplementedError(
-            "MobileViTV2 (LinearSelfAttention, GroupNorm) is not ported to "
-            "PyTorch yet (ROADMAP.md, queue A, item A11)")
     if cfg.model_name not in PORTED:
-        raise NotImplementedError(
-            f"{cfg.model_name} is not ported to PyTorch yet (ported: "
-            f"{', '.join(PORTED)}); ROADMAP.md lists its slice")
+        raise ValueError(f"unknown model {cfg.model_name!r} (valid: "
+                         f"{', '.join(PORTED)})")
     if cfg.model_name == "MobileViT":
         return _mobilevit(cfg)
     return _PLAIN[cfg.model_name](num_classes=cfg.num_classes, seed=cfg.seed)

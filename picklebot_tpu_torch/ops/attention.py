@@ -1,4 +1,5 @@
-"""Multi-head attention as MobileViT uses it.
+"""Multi-head attention as MobileViT uses it, and MobileViTV2's separable
+linear attention.
 
 Counterpart of ``MultiHeadAttention`` and ``sdpa_xla`` in
 ``picklebot_tpu/ops/attention.py``, with the reference's module tree (so
@@ -24,18 +25,23 @@ In train mode with dropout > 0 every backend runs ``sdpa`` with
 attention-probability dropout, as the JAX package falls back to XLA there
 (the kernels have no dropout path). Sequence parallelism is not ported
 (ROADMAP.md).
+
+``LinearSelfAttention`` is the counterpart of the JAX package's: a
+softmax over patches, a sum and a gated product, which no TPU kernel
+computes there either, so it runs plain PyTorch ops on every device.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import torch
 from torch import nn
 
 from picklebot_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_packed, flash_attention_qkvpacked,
     merge_heads, sdpa, split_heads)
-from picklebot_tpu_torch.ops.linear import Dropout, Linear
+from picklebot_tpu_torch.ops.linear import Dense, Dropout, Linear
 from picklebot_tpu_torch.ops.norm import LayerNorm
 
 # 'auto' sends sequences of at least this many tokens to the head-packed
@@ -106,3 +112,27 @@ class MultiHeadAttention(nn.Module):
                 out = sdpa(q, k, v, self.scale, dropout_p=dropout)
             out = merge_heads(out)
         return self.to_out(out)
+
+
+class LinearSelfAttention(nn.Module):
+    """MobileViTV2's separable attention on (B, P, N, C): P pixels per
+    patch, N patches. ``qkv_proj`` (the reference's 1x1 Conv2d, weight
+    (1+2C, C, 1, 1)) gives one query channel, C key and C value channels;
+    the query's softmax over N in f32, cast to x's dtype, weighs the keys
+    into one context vector per pixel position, which scales relu(value)
+    before ``out_proj``."""
+
+    def __init__(self, embed_dim: int, dropout: float = 0.0):
+        super().__init__()
+        self.embed_dim = embed_dim
+        self.qkv_proj = Dense(embed_dim, 1 + 2 * embed_dim, rank=4)
+        self.attn_dropout = Dropout(dropout)
+        self.out_proj = Dense(embed_dim, embed_dim, rank=4)
+
+    def forward(self, x):
+        c = self.embed_dim
+        query, key, value = self.qkv_proj(x).split([1, c, c], dim=-1)
+        scores = torch.softmax(query.float(), dim=-2).to(x.dtype)
+        scores = self.attn_dropout(scores)
+        context = (key * scores).sum(dim=-2, keepdim=True)   # (B, P, 1, C)
+        return self.out_proj(torch.relu(value) * context)

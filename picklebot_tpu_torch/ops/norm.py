@@ -1,6 +1,6 @@
 """Normalization over the channel (last) axis of channels-last activations.
 
-Counterpart of ``BatchNorm`` and ``LayerNorm`` in
+Counterpart of ``BatchNorm``, ``LayerNorm`` and ``GroupNorm`` in
 ``picklebot_tpu/ops/norm.py``, with the reference's torch parameter and
 buffer names (weight, bias, running_mean, running_var,
 num_batches_tracked). ``affine=False`` (MobileViT's conv_*_bn BatchNorms,
@@ -100,6 +100,48 @@ class LayerNorm(nn.Module):
         mean = xf.mean(dim=-1, keepdim=True)
         var = xf.var(dim=-1, unbiased=False, keepdim=True)
         out = (xf - mean) * torch.rsqrt(var + self.eps)
+        if self.affine:
+            out = out * self.weight.float() + self.bias.float()
+        return out.to(x.dtype)
+
+
+class GroupNorm(nn.Module):
+    """torch nn.GroupNorm on channels-last (B, *spatial, C): per sample,
+    mean and biased variance over (spatial, C/G) in f32, the affine terms
+    per channel, the result cast back to x's dtype. MobileViTV2 takes
+    GroupNorm(1, C) as its pre- and post-attention norm."""
+
+    def __init__(self, num_groups: int, num_channels: int,
+                 eps: float = 1e-5, affine: bool = True):
+        super().__init__()
+        if num_channels % num_groups:
+            raise ValueError(f"{num_channels} channels do not split into "
+                             f"{num_groups} groups")
+        self.num_groups = num_groups
+        self.num_channels = num_channels
+        self.eps = eps
+        self.affine = affine
+        if affine:
+            self.weight = nn.Parameter(torch.ones(num_channels))
+            self.bias = nn.Parameter(torch.zeros(num_channels))
+        else:
+            self.register_parameter("weight", None)
+            self.register_parameter("bias", None)
+
+    def reset_parameters(self, generator: torch.Generator):
+        if self.affine:
+            with torch.no_grad():
+                self.weight.fill_(1.0)
+                self.bias.zero_()
+
+    def forward(self, x):
+        g = self.num_groups
+        xf = x.float()
+        grouped = xf.reshape(x.shape[0], -1, g, self.num_channels // g)
+        mean = grouped.mean(dim=(1, 3), keepdim=True)
+        var = grouped.var(dim=(1, 3), unbiased=False, keepdim=True)
+        out = ((grouped - mean) * torch.rsqrt(var + self.eps)).reshape(
+            x.shape)
         if self.affine:
             out = out * self.weight.float() + self.bias.float()
         return out.to(x.dtype)

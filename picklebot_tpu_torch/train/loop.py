@@ -82,7 +82,15 @@ def check_ported(config: Config):
     """Raise NotImplementedError for the first option set in ``config``
     that this trainer does not port, and ValueError for MoViNetA2Stream,
     which neither package trains (the JAX train step passes its forward
-    no carry)."""
+    no carry), and for MobileViTV2, an image classifier that the clip
+    pipeline cannot feed (the JAX loop refuses it alike)."""
+    if config.model_name == "MobileViTV2":
+        raise ValueError(
+            "MobileViTV2 is an image classifier; the clip training loop "
+            "cannot feed it. Use the step API with image batches "
+            "(picklebot_tpu_torch.train.step.make_train_step, "
+            "make_predict_fn; see python -m picklebot_tpu_torch.bench "
+            "--model MobileViTV2).")
     if config.model_name == "MoViNetA2Stream":
         raise ValueError(
             "MoViNetA2Stream is a serving model: the clip trainer passes no "

@@ -1,4 +1,5 @@
-"""Train, eval and inference steps: uint8 clips -> loss, metrics, logits.
+"""Train, eval and inference steps: uint8 clips or images -> loss,
+metrics, logits.
 
 Counterpart of ``preprocess``, ``make_train_step`` (single device),
 ``make_eval_step`` and ``make_predict_fn`` in
@@ -10,7 +11,9 @@ optional global-norm clip and one optimizer update at the epoch's learning
 rate. Compute runs in the policy's dtype (bf16 for ``use_autocast``) with
 no GradScaler. Dropout masks come from one ``torch.Generator`` on the
 device, seeded per microbatch from (seed, position), as the JAX step folds
-the position into its key.
+the position into its key. The steps are rank-free: a batch is whatever
+the model takes, (B, T, H, W, C) clips or, for MobileViTV2, (B, H, W, C)
+images.
 """
 
 from __future__ import annotations
@@ -27,8 +30,8 @@ from picklebot_tpu_torch.train.losses import (LOSSES, LOSSES_PER_SAMPLE,
 
 def preprocess(features: torch.Tensor, compute_dtype, mean=None, std=None,
                input_size=None) -> torch.Tensor:
-    """uint8 (..., T, H, W, C) -> compute dtype: /255, then the optional
-    per-channel mean/std."""
+    """uint8 (..., C) clips or images -> compute dtype: /255, then the
+    optional per-channel mean/std."""
     if input_size:
         raise NotImplementedError(
             "config.input_size (the in-graph resize of ops/resize.py) is "
@@ -43,9 +46,9 @@ def preprocess(features: torch.Tensor, compute_dtype, mean=None, std=None,
 
 def make_predict_fn(model, policy: DtypePolicy = None, mean=None, std=None,
                     input_size=None, device="cuda"):
-    """Batched inference: a uint8 (B, T, H, W, 3) numpy batch -> f32 numpy
-    (B, num_classes) logits, with the model run on ``device`` in eval
-    mode (the model must already live there)."""
+    """Batched inference: a uint8 (B, T, H, W, 3) clip or (B, H, W, 3)
+    image numpy batch -> f32 numpy (B, num_classes) logits, with the model
+    run on ``device`` in eval mode (the model must already live there)."""
     policy = policy or DtypePolicy.bf16()
     device = torch.device(device)
     model.eval()
@@ -68,7 +71,8 @@ def make_train_step(model, optimizer, criterion: str, schedule,
                     max_grad_norm=None, label_smoothing: float = 0.0,
                     seed: int = 0, device="cuda"):
     """step(epoch, features, labels, position=0) -> metrics, with features
-    (A, B, T, H, W, C) uint8 and labels (A, B) (numpy or tensors) and
+    (A, B, T, H, W, C) uint8 clips or (A, B, H, W, C) images and labels
+    (A, B) (numpy or tensors) and
     ``position`` the index of the step's first microbatch in the run (it
     keys the dropout masks). Metrics: per-microbatch ``loss`` and
     ``correct`` (A,) tensors, ``samples`` A*B, ``lr``, and ``grad_norm``

@@ -20,7 +20,7 @@ from picklebot_tpu_torch.models.movinet import MoViNetA2, MoviNetBottleneck
 from picklebot_tpu_torch.models.registry import PORTED, initialize_model
 from picklebot_tpu_torch.ops.conv import Conv3d
 from picklebot_tpu_torch.ops.linear import Linear
-from picklebot_tpu_torch.utils.config import Config
+from picklebot_tpu_torch.utils.config import MODEL_NAMES, Config
 from test_torch_mobilenet3d import _perturb_batchnorm
 from test_torch_mobilenet_small3d import (
     check_cli_trains_and_both_packages_load_the_pth, check_eval_logits,
@@ -140,15 +140,15 @@ def test_cli_trains_on_cpu_and_both_packages_load_the_pth(tmp_path):
 
 
 def test_registry_builds_the_four_models_and_refuses_the_stream_variant():
-    """Kept under its first name: the registry now builds the seven ported
-    models, the stream variant among them, and refuses MobileViTV2."""
+    """Kept under its first name: the registry now builds all eight
+    models of the JAX package's registry, the stream variant and
+    MobileViTV2 among them."""
     assert PORTED == ("MobileNetLarge3D", "MobileNetSmall3D", "MobileViT",
                       "MoViNetA2", "MoViNetA2Stream", "MobileNetLarge2D",
-                      "MobileNetSmall2D")
+                      "MobileNetSmall2D", "MobileViTV2")
+    assert set(PORTED) == set(MODEL_NAMES)
     for name in PORTED:
         extra = MOBILEVIT_CONFIGS["xxs"] if name == "MobileViT" else {}
         model = initialize_model(Config(model_name=name, num_classes=13,
                                         **extra).validate())
         assert type(model).__name__ == name and model.num_classes == 13
-    with pytest.raises(NotImplementedError, match="A11"):
-        initialize_model(Config(model_name="MobileViTV2").validate())
