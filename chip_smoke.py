@@ -7,9 +7,11 @@
     python3 chip_smoke.py --only flash         # the flash kernels' rows
     python3 chip_smoke.py --only stream        # serve --stream's models
     python3 chip_smoke.py --only v2 bench      # MobileViTV2; the bench entry
+    python3 chip_smoke.py --only trainx        # the trainer extras
     python3 chip_smoke.py --only kernels serve # or any of kernels, fused,
                                                # conv, flash, serve, train,
-                                               # timing, stream, v2, bench
+                                               # trainx, timing, stream, v2,
+                                               # bench
 
 Phases, in order (each prints JSON lines; any failure exits non-zero; a
 run with --only says on a JSON line which phases it skipped and prints no
@@ -85,7 +87,24 @@ kernels summary):
               model (MobileViT-s also with conv1/conv4 on the library
               conv, and at each of 'auto''s threshold routes, 3 timed
               steps each)
-  7. stream   the online models of serve --stream (MoViNetA2Stream,
+  7. trainx   the trainer extras: the CLI on MobileNetLarge3D at full
+              width (configs/mobilenet_large_50k.json cut as the train
+              phase's, 40-frame clips windowed to 32 by temporal_jitter, 2
+              epochs of 3 steps) with ema_decay, freeze_params (block1),
+              augment_flip/crop/brightness, remat 1,
+              checkpoint_every_steps 1, keep_checkpoints 2, save_best and
+              early_stop_patience 1: run A uninterrupted, run B stopped by
+              a SIGTERM after optimizer step 2 and finished by
+              auto_resume, under deterministic algorithms; B's tail losses
+              and final snapshot equal A's bit for bit, the exact fused
+              launches of each run with the remat recompute, the frozen
+              stem at its initial value, the snapshots, _best/ and
+              statistics/*.npy written, the .pth served; one MobileViT-s
+              bs-8 train step with remat 1 against remat 0 in bf16 and f32
+              (exact launches of rows 2, 3, 4 and 7; f32 gradients and
+              BatchNorm buffers within 1e-6 of max|ref|); the peak memory
+              of a Large3D bs-8 train step at remat 0 and 1
+  8. stream   the online models of serve --stream (MoViNetA2Stream,
               MobileNetLarge2D, MobileNetSmall2D), none of which runs a
               hand-written kernel: picklebot_tpu_torch.serve.main on 16
               whole synthetic clips each (exactly zero launches, finite
@@ -102,7 +121,7 @@ kernels summary):
               config derived from mobilenet_large2d_50k.json (cut as the
               train phase's), its .pth streamed; train() refusing
               MoViNetA2Stream
-  8. v2       MobileViTV2 at full width (13 classes, seeded weights,
+  9. v2       MobileViTV2 at full width (13 classes, seeded weights,
               BatchNorms calibrated on one batch) on uint8 256x256 images,
               which runs no hand-written kernel (exactly zero launches over
               the phase): at bs 8 the card's f32 logits (TF32 off) against
@@ -112,11 +131,11 @@ kernels summary):
               cosine 0.9999); at bs 32 the forward (CUDA events), the bf16
               train step (host clock, data on the card), images/s, peak
               memory, and a trace of one forward and one train step
-  9. bench    python -m picklebot_tpu_torch.bench in this process:
+ 10. bench    python -m picklebot_tpu_torch.bench in this process:
               MobileNetLarge3D infer at bs 16 (the fused main kernel must
               run) and MobileViTV2 train at bs 32, 256x256 (no launch);
               each prints its JSON line with a value above 0 and the card
- 10. summary  {"kernels": [...]}, the card line, and last
+ 11. summary  {"kernels": [...]}, the card line, and last
               {"ok": true, "device": ...}
 Per-shape numbers also go to chiprun_out/chip_smoke.json. Without CUDA it
 exits with code 2 and prints no result. Imports nothing of JAX.
@@ -309,8 +328,8 @@ BENCH_RUNS = (
      "--size", "256", "--steps", "5"],
 )
 # what --only can pick; with no --only every phase runs
-PHASES = ("kernels", "fused", "conv", "flash", "serve", "train", "timing",
-          "stream", "v2", "bench")
+PHASES = ("kernels", "fused", "conv", "flash", "serve", "train", "trainx",
+          "timing", "stream", "v2", "bench")
 
 
 def emit(obj):
@@ -2275,7 +2294,7 @@ def phase_train_cli(label, cfg_file, counters, per_micro, per_eval,
         zero_counters(counters)
         out = io.StringIO()
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
+        with contextlib.redirect_stdout(out), contextlib.chdir(tmp):
             summary = cli.main([path, "--steps", str(TRAIN_STEPS)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -2347,14 +2366,15 @@ def movinet_a2():
     return MoViNetA2(13, seed=0)
 
 
-def train_step_for(model):
+def train_step_for(model, remat=0):
     """The port's train step (AdamW8bit, bf16, constant lr) on the card."""
     from picklebot_tpu_torch.core.policy import DtypePolicy
     from picklebot_tpu_torch.train.optim import AdamW8bit
     from picklebot_tpu_torch.train.step import make_train_step
     opt = AdamW8bit(model.parameters(), weight_decay=5e-4)
     return make_train_step(model, opt, "CE", lambda epoch: 3e-4,
-                           DtypePolicy.bf16(), device="cuda"), opt
+                           DtypePolicy.bf16(), device="cuda",
+                           remat=remat), opt
 
 
 def phase_train_backends(counters, feats, labels):
@@ -2536,6 +2556,377 @@ def phase_train_timing(label, make_model, feats, x, labels, gpu_line,
     return res
 
 
+# --------------------------------------------------------------------------
+# trainx: the trainer extras
+# --------------------------------------------------------------------------
+
+# the trainx phase's CLI config: the train phase's cuts of
+# configs/mobilenet_large_50k.json, 2 epochs of 3 steps, with every extra
+# of the trainer on; 40-frame clips, so that temporal_jitter takes a
+# random 32-frame window of each
+TRAINX_CUTS = dict(TRAIN_CUTS, synthetic_shape=[40, 224, 224], max_frames=32,
+                   t_bucket=16, max_iters=2, eval_interval=1,
+                   ema_decay=0.99, freeze_params=["block1"],
+                   augment_flip=True, augment_crop=8, augment_brightness=0.2,
+                   remat=1, temporal_jitter=True, checkpoint_every_steps=1,
+                   keep_checkpoints=2, save_best=True, early_stop_patience=1)
+TRAINX_INTERRUPT_AFTER = 2    # run B: SIGTERM after optimizer step 2
+# Large3D launches with remat 1: every bottleneck is a call of the root,
+# so each train microbatch runs its pool and main passes twice (forward,
+# recompute); eval batches once
+TRAINX_PER_MICRO = {"pool": 16, "main": 30}
+TRAINX_PER_EVAL = {"pool": 8, "main": 15}
+# MobileViT-s, one bs-8 microbatch with remat 1: every forward kernel
+# twice, the backward kernels once
+VIT_REMAT_LAUNCHES = {0: {"fused": {"main": 7},
+                          "flash": {"packed": 9, "dq": 9, "dkv": 9},
+                          "conv": {"fwd": 6, "dx": 6}},
+                      1: {"fused": {"main": 14},
+                          "flash": {"packed": 18, "dq": 9, "dkv": 9},
+                          "conv": {"fwd": 12, "dx": 6}}}
+REMAT_F32_GRAD_TOL = 1e-6     # of max|ref|, every gradient and buffer
+
+
+@contextlib.contextmanager
+def _interrupted(after):
+    """Within the block the trainer's train step sends the process SIGTERM
+    before its (after + 1)-th call: a preemption that the loop's handler
+    ends gracefully. A patch inside the script."""
+    import signal
+    from picklebot_tpu_torch.train import loop
+    real = loop.make_train_step
+    calls = []
+
+    def make(*a, **k):
+        fn = real(*a, **k)
+
+        def step(*args):
+            if len(calls) >= after:
+                os.kill(os.getpid(), signal.SIGTERM)
+            calls.append(1)
+            return fn(*args)
+        return step
+    loop.make_train_step = make
+    try:
+        yield
+    finally:
+        loop.make_train_step = real
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms (warn-only, so that an op without
+    one is named, not fatal) with CUBLAS_WORKSPACE_CONFIG set, for the
+    block only."""
+    import torch
+    prev_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if prev_env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = prev_env
+
+
+def _cli_run(cfg_path, counters):
+    import torch
+    from picklebot_tpu_torch import cli
+    zero_counters(counters)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        summary = cli.main([cfg_path])
+    torch.cuda.synchronize()
+    return summary, read_counters(counters)["fused"], \
+        time.perf_counter() - t0, out.getvalue()
+
+
+def _state_diff(a, b):
+    """Max |a - b| over the tensors of two snapshots' model, ema and
+    optimizer state, by part; 0.0 everywhere is bit equality."""
+    import torch
+
+    def flat(p):
+        out = {f"model.{k}": v for k, v in p["model"].items()}
+        out.update({f"ema.{k}": v for k, v in p["ema"].items()})
+        for part in ("m", "v"):
+            for i, st in enumerate(p["optimizer"][part]):
+                for j, t in enumerate(st if isinstance(st, tuple)
+                                      else (st,)):
+                    out[f"optimizer.{part}.{i}.{j}"] = t
+        for k in ("loop_state", "early_stop"):
+            out[k] = p[k]
+        return out
+    fa, fb = flat(a), flat(b)
+    if fa.keys() != fb.keys():
+        raise AssertionError("trainx: the two snapshots hold different "
+                             "tensors")
+    diff = {}
+    for k, v in fa.items():
+        d = (v.double() - fb[k].double()).abs().max().item() \
+            if v.numel() else 0.0
+        part = k.split(".")[0]
+        diff[part] = max(diff.get(part, 0.0), d)
+    diff["optimizer_steps"] = abs(a["optimizer"]["steps"]
+                                  - b["optimizer"]["steps"])
+    diff["epoch"] = abs(a["epoch"] - b["epoch"])
+    return diff, not any(torch.is_tensor(v) and not torch.equal(v, fb[k])
+                         for k, v in fa.items())
+
+
+def phase_trainx_cli(counters):
+    """The CLI on MobileNetLarge3D at full width with every trainer extra
+    (TRAINX_CUTS): run A uninterrupted; run B stopped by SIGTERM after
+    optimizer step 2 and finished by auto_resume. Deterministic algorithms
+    on (CUBLAS_WORKSPACE_CONFIG set for the phase only): B's tail losses
+    and final snapshot (weights, BatchNorm buffers, EMA, optimizer, loop
+    and early-stop state) equal A's bit for bit; the exact fused launches
+    of each run, the remat recompute included; the frozen stem at its
+    initial value and outside the optimizer; the snapshots, _best/ and
+    statistics/*.npy written; A's .pth served."""
+    import warnings
+    import torch
+    from picklebot_tpu_torch import serve
+    from picklebot_tpu_torch.models.registry import initialize_model
+    from picklebot_tpu_torch.train import checkpoint as ckpt
+    from picklebot_tpu_torch.utils.config import load_config
+
+    t_start = time.perf_counter()
+    res = {"phase": "trainx", "model": "MobileNetLarge3D"}
+    with deterministic(), tempfile.TemporaryDirectory() as tmp, \
+            contextlib.chdir(tmp), \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with open(os.path.join(ROOT, "configs",
+                               "mobilenet_large_50k.json")) as f:
+            cfg = json.load(f)
+        reduced = {k: {"from": cfg.get(k), "to": v}
+                   for k, v in TRAINX_CUTS.items() if cfg.get(k) != v}
+        emit({"phase": "trainx", "model": "MobileNetLarge3D",
+              "config": "configs/mobilenet_large_50k.json",
+              "width": "full", "reduced": reduced})
+        paths = {}
+        for run in ("a", "b"):
+            cfg.update(TRAINX_CUTS,
+                       checkpoint_dir=os.path.join(tmp, run, "ck"),
+                       log_dir=os.path.join(tmp, run, "runs"))
+            paths[run] = os.path.join(tmp, f"{run}.json")
+            with open(paths[run], "w") as f:
+                json.dump(cfg, f)
+        config = load_config(paths["a"])
+        n_steps = (config.synthetic_len // config.batch_size
+                   // config.grad_accum_steps)
+        accum = config.grad_accum_steps
+        n_eval = -(-config.synthetic_len // config.batch_size)
+
+        def want(micro, evals):
+            return {k: TRAINX_PER_MICRO[k] * micro
+                    + TRAINX_PER_EVAL[k] * evals
+                    for k in TRAINX_PER_MICRO}
+
+        a, launch_a, wall_a, _ = _cli_run(paths["a"], counters)
+        n_evals = len(a["val_losses"])
+        runs = {"a": launch_a}
+        with _interrupted(TRAINX_INTERRUPT_AFTER):
+            b1, runs["b_interrupted"], wall_b1, _ = _cli_run(
+                paths["b"], counters)
+        with open(paths["b"]) as f:
+            cfg_b = dict(json.load(f), auto_resume=True)
+        with open(paths["b"], "w") as f:
+            json.dump(cfg_b, f)
+        b2, runs["b_resumed"], wall_b2, log_b2 = _cli_run(paths["b"],
+                                                          counters)
+        done = TRAINX_INTERRUPT_AFTER * accum
+        wanted = {
+            "a": want(n_steps * config.max_iters * accum,
+                      n_eval * n_evals),
+            "b_interrupted": want(done, 0),
+            "b_resumed": want(len(a["train_losses"]) - done,
+                              n_eval * n_evals)}
+        if runs != wanted:
+            raise AssertionError(f"trainx: fused launches {runs}, want "
+                                 f"{wanted}")
+        if "auto_resume: found" not in log_b2:
+            raise AssertionError("trainx: run B did not resume from a "
+                                 "snapshot")
+        fins = {run: ckpt.load_checkpoint(ckpt.latest_checkpoint(
+            os.path.join(tmp, run, "ck",
+                         f"{config.run_name()}_finished")))
+            for run in ("a", "b")}
+        diff, bit_equal = _state_diff(fins["a"], fins["b"])
+        tail_equal = (b1["train_losses"] == a["train_losses"][:done]
+                      and b2["train_losses"] == a["train_losses"][done:])
+        refused = sorted({str(w.message).split(" does not have")[0]
+                          for w in caught
+                          if "deterministic" in str(w.message)})
+        if not (bit_equal and tail_equal):
+            if not refused:
+                raise AssertionError(
+                    f"trainx: the resumed run differs from the "
+                    f"uninterrupted one ({diff}) and no op refused "
+                    f"determinism")
+            lr = config.learning_rate
+            bound = 2 * lr * len(b2["train_losses"])
+            loss_ok = all(abs(x - y) <= TRAIN_LOSS_REL_TOL * abs(y)
+                          for x, y in zip(b1["train_losses"]
+                                          + b2["train_losses"],
+                                          a["train_losses"]))
+            if not loss_ok or diff["ema"] > bound or any(
+                    diff[k] != 0 for k in ("loop_state", "epoch",
+                                           "optimizer_steps")):
+                raise AssertionError(f"trainx: resumed run off bounds "
+                                     f"{diff} (ops {refused})")
+        # the frozen stem: its initial value, no optimizer state (its EMA,
+    # d * p + (1 - d) * p in f32, may move by a rounding, as in JAX)
+        fresh = initialize_model(config).state_dict()
+        stem = [k for k in fresh if k.startswith("block1.")
+                and not k.split(".")[-1].startswith(("running",
+                                                     "num_batches"))]
+        for run, fin in fins.items():
+            for k in stem:
+                if not torch.equal(fin["model"][k], fresh[k]):
+                    raise AssertionError(f"trainx {run}: frozen {k} "
+                                         "moved")
+            n_opt = len(fin["optimizer"]["shapes"])
+            n_params = sum(1 for k in fin["ema"])
+            if n_opt != n_params - len(stem):
+                raise AssertionError(f"trainx {run}: the optimizer "
+                                     f"holds {n_opt} of {n_params}")
+        # the files: the ranked snapshots, _best/, statistics/*.npy
+        snaps = os.path.join(tmp, "a", "ck", "MobileNetLarge3D")
+        listed = sorted(os.listdir(snaps))
+        best_dir = snaps + "_best"
+        best = sorted(os.listdir(best_dir))
+        stats = sorted(os.listdir("statistics"))
+        latest = os.path.basename(ckpt.latest_checkpoint(snaps))
+        val = a["val_losses"]
+        if (listed != [f"step_{e}" for e in range(n_evals)]
+                + [f"step_{n_evals - 1}_{n_steps}"]
+                or latest != f"step_{n_evals - 1}"
+                or not 1 <= len(best) <= 2
+                or best[-1] != f"step_{int(np.argmin(val))}"
+                or len(stats) != 5):
+            raise AssertionError(f"trainx: files {listed}, latest "
+                                 f"{latest}, best {best}, statistics "
+                                 f"{stats}")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = serve.main([paths["a"], "--checkpoint",
+                             a["checkpoint"], "--csv", "synthetic",
+                             "--limit", "8", "--batch", "8"])
+        preds = [ln for ln in out.getvalue().splitlines()
+                 if ln.startswith('{"clip"')]
+        if rc != 0 or len(preds) != 8:
+            raise AssertionError(f"trainx: serving the .pth gave rc "
+                                 f"{rc}, {len(preds)} predictions")
+        res.update(
+            launches=runs, launches_per_microbatch=TRAINX_PER_MICRO,
+            launches_per_eval_batch=TRAINX_PER_EVAL,
+            train_losses=a["train_losses"], val_losses=val,
+            stopped_early=a["stopped_early"],
+            resumed_bit_equal=bit_equal and tail_equal,
+            max_abs_diff=diff, nondeterministic_ops=refused,
+            snapshots=listed, best=best, statistics=stats,
+            pth_served=len(preds),
+            cli_wall_s={"a": wall_a, "b_interrupted": wall_b1,
+                        "b_resumed": wall_b2})
+    res["seconds"] = time.perf_counter() - t_start
+    emit(res)
+    return res
+
+
+def _remat_step(make_model, remat, policy, feats, labels, counters):
+    """One train step (one bs-8 microbatch, AdamW, seeded dropout) with
+    ``remat``: the launches, the gradients and the BatchNorm buffers."""
+    import torch
+    from picklebot_tpu_torch.train.optim import AdamW
+    from picklebot_tpu_torch.train.step import make_train_step
+    model = make_model().cuda()
+    step = make_train_step(model, AdamW(model.parameters()), "CE",
+                           lambda epoch: 3e-4, policy, seed=3,
+                           device="cuda", remat=remat)
+    zero_counters(counters)
+    metrics = step(0, feats[None], labels[None])
+    torch.cuda.synchronize()
+    launches = read_counters(counters)
+    grads = {n: p.grad.float() for n, p in model.named_parameters()
+             if p.grad is not None}
+    bufs = {n: b.float() for n, b in model.named_buffers()}
+    return launches, float(metrics["loss"][0]), grads, bufs
+
+
+def phase_trainx_remat(counters, feats, labels, gpu_line):
+    """MobileViT-s, one bs-8 train step with remat 1 against remat 0, in
+    bf16 and in f32 (TF32 off), deterministic algorithms on: the exact
+    launches of rows 2, 3, 4 and 7 with the recompute; every gradient and
+    BatchNorm buffer within REMAT_F32_GRAD_TOL of max|ref| in f32, and in
+    bf16 no farther than twice a remat-0 repeat's distance (a repeat of
+    the same step: the card's own noise) or that bound. Then the peak
+    device memory of a MobileNetLarge3D bs-8 bf16 train step at remat 0
+    and 1 (a reading)."""
+    import torch
+    from picklebot_tpu_torch.core.policy import DtypePolicy
+    t_start = time.perf_counter()
+    res = {"phase": "trainx_remat", "card": gpu_line}
+
+    def rel_err(ref, new):
+        if ref.keys() != new.keys():
+            raise AssertionError("trainx remat: the runs hold different "
+                                 "tensors")
+        return max((new[k] - ref[k]).abs().max().item()
+                   / max(ref[k].abs().max().item(), 1e-30) for k in ref)
+
+    for dtype, policy in (("bf16", DtypePolicy.bf16()),
+                          ("f32", DtypePolicy.f32())):
+        with deterministic():
+            got = {r: _remat_step(mobilevit_s, r, policy, feats, labels,
+                                  counters) for r in (0, 1)}
+            repeat = _remat_step(mobilevit_s, 0, policy, feats, labels,
+                                 counters)
+        for r in (0, 1):
+            wanted = launches_wanted(**VIT_REMAT_LAUNCHES[r])
+            if got[r][0] != wanted:
+                raise AssertionError(f"trainx MobileViT-s {dtype} remat "
+                                     f"{r}: launches {got[r][0]}, want "
+                                     f"{wanted}")
+        (_, loss0, g0, b0), (_, loss1, g1, b1) = got[0], got[1]
+        err = {"grads": rel_err(g0, g1), "buffers": rel_err(b0, b1)}
+        noise = {"grads": rel_err(g0, repeat[2]),
+                 "buffers": rel_err(b0, repeat[3])}
+        bound = REMAT_F32_GRAD_TOL if dtype == "f32" else max(
+            REMAT_F32_GRAD_TOL, 2 * max(noise.values()))
+        if max(err.values()) > bound or \
+                abs(loss1 - loss0) > 1e-6 * abs(loss0):
+            raise AssertionError(f"trainx remat {dtype}: rel err {err} "
+                                 f"(bound {bound}, a repeat's {noise}), "
+                                 f"loss {loss1} vs {loss0}")
+        res[dtype] = {"launches": {r: got[r][0] for r in (0, 1)},
+                      "loss": {0: loss0, 1: loss1}, "max_rel_err": err,
+                      "repeat_max_rel_err": noise, "bound": bound}
+    del got
+    memory = {}
+    for r in (0, 1):
+        step, _ = train_step_for(large3d().cuda(), remat=r)
+        step(0, feats[None], labels[None])
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        step(0, feats[None], labels[None])
+        torch.cuda.synchronize()
+        memory[r] = {"peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                     "train_step_ms": (time.perf_counter() - t0) * 1e3}
+        del step
+    res["large3d_bf16_bs8"] = memory
+    res["seconds"] = time.perf_counter() - t_start
+    emit(res)
+    return res
+
+
 def fused_entry(name, line, fused_per, launches_by_run):
     """Summary entry of one fused-bottleneck kernel: ms, plain, bound and
     library times summed over one bs-8 forward of each model (the top
@@ -2673,7 +3064,8 @@ def parse_args(argv):
         "fused library's SASS check alone), conv (the conv "
         "kernel's rows alone), flash (the flash kernels' rows alone, "
         "forward and backward), serve, train (the CLI runs, the attention "
-        "backends, the gradients against the plain path), timing (the "
+        "backends, the gradients against the plain path), trainx (the "
+        "trainer extras: resume, remat, freeze, EMA), timing (the "
         "train-step timings), stream (serve --stream's models: whole "
         "clips, chunks against the whole clip, causality, chunk latency, "
         "MobileNetLarge2D's CLI run), v2 (MobileViTV2: logits and a train "
@@ -2751,7 +3143,8 @@ def main(argv=None):
             ("fwd_bf16_kernel", "dq_bf16_kernel", "dkv_bf16_kernel"))
     if sass:
         seconds["kernels"] = time.perf_counter() - t0
-    if any(selected(p) for p in ("serve", "train", "timing", "stream")):
+    if any(selected(p) for p in ("serve", "train", "trainx", "timing",
+                                 "stream")):
         feats, x = clip_batch()
     if selected("serve"):
         t0 = time.perf_counter()
@@ -2805,6 +3198,13 @@ def main(argv=None):
             "MobileNetLarge3D": grads_against_plain("MobileNetLarge3D",
                                                     large3d, x, labels)}
         seconds["train_backends_and_grads"] = time.perf_counter() - t0
+    trainx = None
+    if selected("trainx"):
+        t0 = time.perf_counter()
+        trainx = {"cli": phase_trainx_cli(counters),
+                  "remat": phase_trainx_remat(counters, feats, labels,
+                                              gpu_line)}
+        seconds["trainx"] = time.perf_counter() - t0
     if selected("timing"):
         train["timing"] = {
             label: phase_train_timing(
@@ -2839,7 +3239,7 @@ def main(argv=None):
               "folded_conv": conv,
               "serve": {"MobileNetLarge3D": large, "MobileViT-s": vit,
                         "MobileNetSmall3D": small, "MoViNetA2": movinet},
-              "train": train, "stream": stream, "v2": v2,
+              "train": train, "trainx": trainx, "stream": stream, "v2": v2,
               "bench": bench_runs}
     if only:
         skipped = [p for p in PHASES if not selected(p)
@@ -2869,15 +3269,26 @@ def main(argv=None):
             **{f"train_step_mobilevit_{b}":
                train["backends"][b]["launches"]["fused"]
                for b in ("pallas", "pallas_packed")}}
+    runs.update({f"trainx_large3d_{k}": v
+                 for k, v in trainx["cli"]["launches"].items()})
+    vit_remat = {f"trainx_mobilevit_{dtype}_remat{r}": launches
+                 for dtype in ("bf16", "f32")
+                 for r, launches in trainx["remat"][dtype][
+                     "launches"].items()}
+    runs.update({k: v["fused"] for k, v in vit_remat.items()})
     flash_runs = {"serve_mobilevit": vit["launches"]["flash"],
                   **{f"forward_mobilevit_{b}": vit[b]["launches"]["flash"]
                      for b in ("pallas", "pallas_packed")},
                   "train_MobileViT-s":
                   train["MobileViT-s"]["launches"]["flash"]}
+    packed_bwd_runs = {"train_MobileViT-s":
+                       train["MobileViT-s"]["launches"]["flash"],
+                       **{k: v["flash"] for k, v in vit_remat.items()}}
     heads_bwd_runs = {f"train_step_mobilevit_{b}":
                       train["backends"][b]["launches"]["flash"]
                       for b in ("pallas", "pallas_packed")}
     flash_runs.update(heads_bwd_runs)
+    flash_runs.update({k: v["flash"] for k, v in vit_remat.items()})
     conv_runs = {"serve_mobilevit": vit["launches"]["conv"],
                  **{f"forward_mobilevit_{b}": vit[b]["launches"]["conv"]
                     for b in ("pallas", "pallas_packed")},
@@ -2885,7 +3296,8 @@ def main(argv=None):
                  train["MobileViT-s"]["launches"]["conv"],
                  **{f"train_step_mobilevit_{b}":
                     train["backends"][b]["launches"]["conv"]
-                    for b in ("pallas", "pallas_packed")}}
+                    for b in ("pallas", "pallas_packed")},
+                 **{k: v["conv"] for k, v in vit_remat.items()}}
     tpu = "picklebot_tpu/ops/pallas/"
     kernels = [
         fused_entry("pool", 86, fused_per, runs),
@@ -2897,14 +3309,10 @@ def main(argv=None):
                     flash, flash_runs, dict(VIT_ATTENTION)),
         flash_bwd_entry("flash_packed_bwd_dq", "dq",
                         f"{tpu}flash_packed.py:271", flash_bwd, "packed",
-                        {"train_MobileViT-s":
-                         train["MobileViT-s"]["launches"]["flash"]},
-                        VIT_PACKED),
+                        packed_bwd_runs, VIT_PACKED),
         flash_bwd_entry("flash_packed_bwd_dkv", "dkv",
                         f"{tpu}flash_packed.py:304", flash_bwd, "packed",
-                        {"train_MobileViT-s":
-                         train["MobileViT-s"]["launches"]["flash"]},
-                        VIT_PACKED),
+                        packed_bwd_runs, VIT_PACKED),
         flash_bwd_entry("flash_bwd_dq", "dq", f"{tpu}flash_attention.py:146",
                         flash_bwd, "heads", heads_bwd_runs,
                         dict(VIT_ATTENTION)),
@@ -2913,7 +3321,7 @@ def main(argv=None):
                         heads_bwd_runs, dict(VIT_ATTENTION)),
         conv_entry("fwd", conv, conv_runs),
         conv_entry("dx", conv, {k: r for k, r in conv_runs.items()
-                                if k.startswith("train_")}),
+                                if k.startswith(("train_", "trainx_"))}),
     ]
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"),
               "w") as f:

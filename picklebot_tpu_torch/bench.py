@@ -48,10 +48,11 @@ a CPU row has no device rate). The JAX matrix's
 ``hbm_*`` columns are left out: the port has no counterpart of XLA's
 count of bytes accessed.
 
-Not offered: ``--baked`` (the AOT-exported serving program, ROADMAP.md
-item A17) and ``--remat`` > 0 (activation rematerialization, item A8)
-raise; the JAX bench's ``--s2d``, ``--early-fold`` and ``--fold-span``
-pick TPU layout rewrites that the port does not carry.
+``--remat N`` checkpoints N levels of module calls in a train step
+(``core/remat.py``). Not offered: ``--baked`` (the AOT-exported serving
+program, ROADMAP.md item A17) raises; the JAX bench's ``--s2d``,
+``--early-fold`` and ``--fold-span`` pick TPU layout rewrites that the
+port does not carry.
 """
 
 from __future__ import annotations
@@ -82,7 +83,7 @@ PEAK_BF16_FLOPS = 989e12            # H100 SXM, dense
 IMAGE_MODELS = ("MobileViTV2",)
 
 # bench.py's MATRIX_ROWS: (model, variant, mode, batch, frames, size,
-# baked[, remat]); the baked and remat rows are recorded as unported
+# baked[, remat]); the baked rows are recorded as unported
 MATRIX_ROWS = [
     ("MobileNetLarge3D", None, "train", 16, 32, 224, False),
     ("MobileNetLarge3D", None, "train", 64, 32, 224, False),
@@ -129,17 +130,13 @@ MATRIX_ROWS = [
 ]
 
 
-def check_ported(baked: bool, remat: int):
+def check_ported(baked: bool):
     """Raise NotImplementedError for an option the port does not have,
     naming its ROADMAP.md item."""
     if baked:
         raise NotImplementedError(
             "--baked (weights baked into an exported serving program) is "
             "not ported (ROADMAP.md, queue A, item A17)")
-    if remat > 0:
-        raise NotImplementedError(
-            f"--remat {remat} (activation rematerialization) is not ported "
-            "(ROADMAP.md, queue A, item A8)")
 
 
 def bench_config(model: str, variant: str = "xxs") -> Config:
@@ -170,7 +167,8 @@ class Workload:
     """One bench step of ``cfg`` at ``shape`` on ``device``, its data
     already there: ``run()`` enqueues one step."""
 
-    def __init__(self, cfg: Config, mode: str, shape, device):
+    def __init__(self, cfg: Config, mode: str, shape, device,
+                 remat: int = 0):
         self.cfg, self.mode, self.device = cfg, mode, device
         self.policy = DtypePolicy.bf16() if cfg.use_autocast else \
             DtypePolicy.f32()
@@ -189,7 +187,7 @@ class Workload:
                 self.model, opt, cfg.criterion,
                 cosine_annealing_lr(cfg.learning_rate,
                                     max(cfg.max_iters, 1)),
-                self.policy, seed=cfg.seed, device=device)
+                self.policy, seed=cfg.seed, device=device, remat=remat)
         elif mode == "infer":
             self.feats = torch.from_numpy(feats).to(device)
             self.model.eval()
@@ -308,9 +306,10 @@ def measure_row(model, variant, mode, batch, frames, size, baked, remat=0,
     if remat:
         row["remat"] = remat
     try:
-        check_ported(baked, remat)
+        check_ported(baked)
         work = Workload(bench_config(model, variant), mode,
-                        input_shape(model, batch, frames, size), device)
+                        input_shape(model, batch, frames, size), device,
+                        remat)
         row["value"], row["steps_per_window"] = measure(work, steps, warmup)
         step_s = batch / row["value"]
         row["ms_per_step"] = 1e3 * step_s
@@ -393,7 +392,8 @@ def parse_args(argv=None):
     p.add_argument("--baked", action="store_true",
                    help="not ported (ROADMAP.md A17): raises")
     p.add_argument("--remat", type=int, default=0,
-                   help="not ported (ROADMAP.md A8): > 0 raises")
+                   help="train: checkpoint this many levels of module "
+                   "calls (activation rematerialization)")
     p.add_argument("--matrix", action="store_true",
                    help="measure MATRIX_ROWS into one JSON artifact")
     p.add_argument("--matrix-out", default="BENCH_MATRIX_TORCH.json")
@@ -410,11 +410,11 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     if args.matrix:
         return run_matrix(args)
-    check_ported(args.baked, args.remat)
+    check_ported(args.baked)
     device = resolve_device(args.device)
     shape = input_shape(args.model, args.batch, args.frames, args.size)
     work = Workload(bench_config(args.model, args.variant), args.mode,
-                    shape, device)
+                    shape, device, args.remat)
     value, n = measure(work, args.steps, args.warmup)
     line = {"metric": metric_name(args.model, args.variant, args.mode,
                                   args.batch, args.frames, args.size,

@@ -20,6 +20,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from picklebot_tpu_torch.ops.norm import BatchNorm, GroupNorm, LayerNorm
+
 # JAX path -> torch key where the two module trees differ: regex
 # rewrites, applied in order before the generic leaf renames
 _MOBILENET3D_RULES = (
@@ -109,6 +111,88 @@ def _torch_key(path: str, is_state: bool, model_name: str) -> str:
                          "bias": "bias"}[leaf]
 
 
+# torch key -> JAX path: the rules above inverted, model by model. A
+# lookahead for a bare leaf tells a Sequential's conv/BN (block1.0.weight)
+# from a bottleneck's inner module (block4.0.pointwise_conv1.weight).
+_LEAF_ONLY = r"(?=[^.]+$)"
+_MOBILENET3D_INVERSE = (
+    (r"^classifier\.1\.", "fc1."), (r"^classifier\.3\.", "fc2."),
+    (r"^block([16])\.0\." + _LEAF_ONLY, r"block\1.conv."),
+    (r"^block([16])\.1\." + _LEAF_ONLY, r"block\1.bn."),
+    (r"^block4\.0\." + _LEAF_ONLY, "b4_conv."),
+    (r"^block4\.1\.(?=se\.)", "b4_se."),
+    (r"^block4\.2\." + _LEAF_ONLY, "b4_bn."),
+)
+_MOVINET_INVERSE = (
+    (r"^block1\.0\." + _LEAF_ONLY, "stem_conv."),
+    (r"^block1\.1\." + _LEAF_ONLY, "stem_bn."),
+    (r"^conv\.0\.", "head_conv."), (r"^conv\.1\.", "head_bn."),
+    (r"^classifier\.2\.", "fc1."), (r"^classifier\.3\.", "fc1_bn."),
+    (r"^classifier\.6\.", "fc2."),
+)
+_MOBILENET2D_INVERSE = (
+    (r"^block1\.0\." + _LEAF_ONLY, "block1.conv."),
+    (r"^block1\.1\." + _LEAF_ONLY, "block1.bn."),
+    (r"^block6\.0\." + _LEAF_ONLY, "b6_conv."),
+    (r"^block6\.1\." + _LEAF_ONLY, "b6_bn."),
+    (r"^block4\.0\." + _LEAF_ONLY, "b4_conv."),
+    (r"^block4\.1\.(?=se\.)", "b4_se."),
+    (r"^block4\.2\." + _LEAF_ONLY, "b4_bn."),
+    (r"^classifier\.0\.", "classifier."),
+)
+_MOBILEVIT_INVERSE = (
+    (r"^to_logits\.0\.0\.", "to_logits_conv.conv."),
+    (r"^to_logits\.0\.1\.", "to_logits_conv.bn."),
+    (r"^to_logits\.2\.", "head."),
+    (r"(^|\.)(conv[1-4])\.0\.", r"\1\2.conv."),
+    (r"(^|\.)(conv[1-4])\.1\.", r"\1\2.bn."),
+    (r"\.layers\.(\d+)\.0\.to_out\.0\.", r".attns.\1.to_out."),
+    (r"\.layers\.(\d+)\.0\.", r".attns.\1."),
+    (r"\.layers\.(\d+)\.1\.net\.0\.", r".ffs.\1.fc1."),
+    (r"\.layers\.(\d+)\.1\.net\.3\.", r".ffs.\1.fc2."),
+)
+INVERSE_RULES = {"MobileNetLarge3D": _MOBILENET3D_INVERSE,
+                 "MobileNetSmall3D": _MOBILENET3D_INVERSE,
+                 "MobileViT": _MOBILEVIT_INVERSE,
+                 "MoViNetA2": _MOVINET_INVERSE,
+                 "MobileNetLarge2D": _MOBILENET2D_INVERSE,
+                 "MobileNetSmall2D": _MOBILENET2D_INVERSE,
+                 "MobileViTV2": (
+                     (r"^(transformer\d)\.transformer\.layer\.(\d+)\.",
+                      r"\1.transformer.\2."),)}
+
+
+def jax_param_path(model: torch.nn.Module, torch_key: str,
+                   model_name: str) -> str:
+    """The JAX package's parameter path of the port parameter
+    ``torch_key``: ``_torch_key`` inverted, checked by mapping it
+    forward again. A norm's weight is the JAX ``scale``, an SE block's
+    ``se.1``/``se.3`` leaves its ``w1 b1 w2 b2``."""
+    if model_name not in INVERSE_RULES:
+        raise NotImplementedError(
+            f"no key table for {model_name}: not ported yet (ROADMAP.md)")
+    owner_key, _, leaf = torch_key.rpartition(".")
+    owner = model.get_submodule(owner_key)
+    path = torch_key
+    for pattern, repl in INVERSE_RULES[model_name]:
+        path = re.sub(pattern, repl, path)
+    head, _, _ = path.rpartition(".")
+    se = re.fullmatch(r"(.*)\.se\.([13])", head)
+    kind = {"weight": "w", "bias": "b"}[leaf.split("_")[0]]
+    if se:
+        path = f"{se[1]}.{kind}{'1' if se[2] == '1' else '2'}"
+    elif "_" in leaf:                            # weight_ih_l0 -> w_ih_l0
+        path = f"{head}.{kind}_{leaf.split('_', 1)[1]}"
+    elif isinstance(owner, (BatchNorm, LayerNorm, GroupNorm)):
+        path = f"{head}." + {"w": "scale", "b": "bias"}[kind]
+    else:
+        path = f"{head}.{kind}"
+    if _torch_key(path, False, model_name) != torch_key:
+        raise KeyError(f"{torch_key}: no JAX path maps to it ({path} maps "
+                       f"to {_torch_key(path, False, model_name)})")
+    return path
+
+
 def _torch_layout(v: np.ndarray, torch_key: str,
                   conv_rank: int) -> np.ndarray:
     v = np.array(v, np.float32, copy=True)   # never alias the caller's
@@ -145,11 +229,15 @@ def state_dict_from_jax(flat_params: Dict[str, np.ndarray],
     return out
 
 
-def load_pth(path: str, model: torch.nn.Module) -> torch.nn.Module:
-    """Strict load of a reference-keyed ``.pth`` into ``model`` (the
-    ``_orig_mod.`` prefix of torch.compile is dropped first)."""
+def read_pth(path: str) -> Dict[str, torch.Tensor]:
+    """A reference-keyed ``.pth`` state dict on the CPU, the
+    ``_orig_mod.`` prefix of torch.compile dropped."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
-    sd = {k[len("_orig_mod."):] if k.startswith("_orig_mod.") else k: v
-          for k, v in sd.items()}
-    model.load_state_dict(sd, strict=True)
+    return {k[len("_orig_mod."):] if k.startswith("_orig_mod.") else k: v
+            for k, v in sd.items()}
+
+
+def load_pth(path: str, model: torch.nn.Module) -> torch.nn.Module:
+    """Strict load of a reference-keyed ``.pth`` into ``model``."""
+    model.load_state_dict(read_pth(path), strict=True)
     return model

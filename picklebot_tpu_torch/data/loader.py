@@ -5,8 +5,10 @@ The port's own copy of ``DataLoader`` and ``accumulate_batches`` in
 release the GIL) fill a bounded queue, batches come out in order, collated
 by ``pad_collate``. The shuffle is a permutation seeded by (seed, epoch)
 through ``set_epoch``, as DistributedSampler does; ``drop_last`` skips the
-tail's decode. The mid-epoch ``skip`` and ``temporal_jitter`` of the JAX
-loader are not ported (ROADMAP.md, queue A, item A8).
+tail's decode. ``skip(n)`` fast-forwards the next iteration past its first
+n batches (a mid-epoch resume), and ``temporal_jitter`` takes a random
+``max_frames`` window of a longer clip, keyed by (seed, epoch, dataset
+index), so both give the JAX loader's batches bit for bit.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ class DataLoader:
                  shuffle: bool = False, num_workers: int = 4,
                  t_bucket: int = 8, max_frames: int = 256,
                  seed: int = 1234, drop_last: bool = False,
-                 prefetch_batches: int = 4):
+                 prefetch_batches: int = 4, temporal_jitter: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -36,10 +38,18 @@ class DataLoader:
         self.seed = seed
         self.drop_last = drop_last
         self.prefetch_batches = prefetch_batches
+        self.temporal_jitter = temporal_jitter
         self.epoch = 0
+        self._skip_batches = 0
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch
+
+    def skip(self, n_batches: int):
+        """The next iteration starts at batch ``n_batches`` of its epoch:
+        the skipped indices leave the permutation before any decode.
+        One-shot."""
+        self._skip_batches = max(0, int(n_batches))
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -54,10 +64,21 @@ class DataLoader:
             rng.shuffle(idx)
         return idx
 
+    def _window(self, item, ds_idx: int):
+        """A clip longer than max_frames -> a random max_frames window,
+        the JAX loader's draw on (seed, epoch, dataset index)."""
+        clip, label = item
+        rng = np.random.RandomState(
+            (self.seed * 1000003 + self.epoch) * 1000003 % 2**31 ^ ds_idx)
+        s = rng.randint(0, clip.shape[0] - self.max_frames + 1)
+        return clip[s:s + self.max_frames], label
+
     def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         nb = len(self)
         order = self._order()[:nb * self.batch_size] if self.drop_last \
             else self._order()
+        skip, self._skip_batches = min(self._skip_batches, nb), 0
+        order, nb = order[skip * self.batch_size:], nb - skip
         item_q: "queue.Queue" = queue.Queue(
             maxsize=self.prefetch_batches * self.batch_size)
         stop = threading.Event()
@@ -72,7 +93,11 @@ class DataLoader:
                         return
                     cursor["i"] = i + 1
                 try:
-                    item = self.dataset[int(order[i])]
+                    ds_idx = int(order[i])
+                    item = self.dataset[ds_idx]
+                    if self.temporal_jitter and \
+                            item[0].shape[0] > self.max_frames:
+                        item = self._window(item, ds_idx)
                 except Exception as e:  # surface decode errors, don't hang
                     item = e
                 item_q.put((i, item))

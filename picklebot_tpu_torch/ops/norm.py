@@ -9,8 +9,9 @@ folds (mean, var, weight, bias) into one per-channel multiply-add in f32
 and applies it in the activation's dtype. Train mode follows torch, as
 the JAX BatchNorm does: f32 batch statistics, the biased variance to
 normalize and the unbiased one into ``running_var``, momentum 0.1,
-``num_batches_tracked`` += 1; the buffers update without a graph, the
-normalization is differentiated through the batch statistics. The same
+``num_batches_tracked`` += 1; the buffers update without a graph (and
+not in a remat recompute, ``core/remat.py``), the normalization is
+differentiated through the batch statistics. The same
 fold then applies them.
 """
 
@@ -18,6 +19,8 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+
+from picklebot_tpu_torch.core.remat import recomputing
 
 
 class BatchNorm(nn.Module):
@@ -56,11 +59,14 @@ class BatchNorm(nn.Module):
             var = xf.var(dims, unbiased=False)
             n = x.numel() // x.shape[-1]
             m = self.momentum
-            with torch.no_grad():
-                self.running_mean.mul_(1 - m).add_(m * mean)
-                self.running_var.mul_(1 - m).add_(
-                    m * (var * (n / max(n - 1, 1))))
-                self.num_batches_tracked.add_(1)
+            # a remat recompute runs this forward again: the statistics
+            # advance once, as in the JAX package
+            if not recomputing():
+                with torch.no_grad():
+                    self.running_mean.mul_(1 - m).add_(m * mean)
+                    self.running_var.mul_(1 - m).add_(
+                        m * (var * (n / max(n - 1, 1))))
+                    self.num_batches_tracked.add_(1)
         else:
             mean, var = self.running_mean.float(), self.running_var.float()
         a = torch.rsqrt(var + self.eps)

@@ -6,18 +6,33 @@ per optimizer step), epochs over ``max_iters`` with a per-epoch shuffle and
 the cosine schedule stepped per epoch, per-microbatch TensorBoard scalars
 under the JAX loop's tag names, an eval every ``eval_interval`` epochs (and
 after the last) over the whole val set with the tail padded and masked,
-``config.checkpoint`` as a ``.pth`` weights-only warm start, and the final
-model written as a ``.pth`` with the reference keys (which the port's
-``serve`` and the JAX package's ``load_pth`` both load). Ctrl-C and SIGTERM
-end the run early and still write the final model.
+and the final model written as a ``.pth`` with the reference keys (which
+the port's ``serve`` and the JAX package's ``load_pth`` both load).
+
+The trainer extras of the JAX loop: ``ema_decay`` (the eval scores the
+EMA weights with the live BatchNorm statistics), ``freeze_params``,
+``augment_*``, ``remat``, ``temporal_jitter``; full-state snapshots
+(``train/checkpoint.py``) after every eval, every
+``checkpoint_every_steps`` optimizer steps (keep-1), under ``_best/``
+with ``save_best``, and at the end under ``{run_name}_finished/``, pruned
+to ``keep_checkpoints``, written on a background thread with
+``async_checkpoint``; ``auto_resume`` from the newest one, mid-epoch
+included (the loader fast-forwards, dropout and augmentation are keyed
+on the position, so the resumed run is the uninterrupted one);
+``early_stop_patience`` / ``early_stop_min_delta`` with the JAX loop's
+two baselines; ``warm_start`` (weights and BatchNorm statistics only) and
+``warm_start_partial`` (the tensors whose key and shape match); the
+``statistics/*.npy`` artifacts. Ctrl-C and SIGTERM end the run early and
+still write the final snapshot and model.
 
 Every config option this trainer does not port raises NotImplementedError
-naming its ROADMAP.md item; none is silently ignored. Orbax snapshots,
-per-epoch snapshots and the statistics/*.npy artifacts are not written.
+naming its ROADMAP.md item; none is silently ignored.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
 import os
 import signal
 import threading
@@ -27,36 +42,23 @@ from typing import Optional
 import numpy as np
 import torch
 
-from picklebot_tpu_torch.convert import load_pth
+from picklebot_tpu_torch.convert import read_pth
 from picklebot_tpu_torch.core.policy import DtypePolicy
 from picklebot_tpu_torch.data.dataset import ClipDataset, read_annotations
+from picklebot_tpu_torch.data.augment import Augment
 from picklebot_tpu_torch.data.loader import DataLoader, accumulate_batches
 from picklebot_tpu_torch.models.registry import initialize_model
+from picklebot_tpu_torch.train import checkpoint as ckpt
+from picklebot_tpu_torch.train.freeze import freeze, frozen_summary
 from picklebot_tpu_torch.train.metrics import SummaryWriter, windowed_average
 from picklebot_tpu_torch.train.optim import OPTIMIZERS, cosine_annealing_lr
-from picklebot_tpu_torch.train.step import make_eval_step, make_train_step
+from picklebot_tpu_torch.train.step import (ema_init, make_eval_step,
+                                            make_train_step)
 from picklebot_tpu_torch.utils.config import Config
 from picklebot_tpu_torch.utils.devices import resolve_device
 
-_TRAINER = "queue A, item A8"
 # config option -> (is it set?, ROADMAP.md item that ports it)
 UNPORTED = {
-    "ema_decay": (lambda c: c.ema_decay > 0, _TRAINER),
-    "freeze_params": (lambda c: bool(c.freeze_params), _TRAINER),
-    "augment_flip": (lambda c: c.augment_flip, _TRAINER),
-    "augment_crop": (lambda c: c.augment_crop > 0, _TRAINER),
-    "augment_brightness": (lambda c: c.augment_brightness > 0, _TRAINER),
-    "remat": (lambda c: int(c.remat) > 0, _TRAINER),
-    "checkpoint_every_steps": (lambda c: c.checkpoint_every_steps > 0,
-                               _TRAINER),
-    "auto_resume": (lambda c: c.auto_resume, _TRAINER),
-    "early_stop_patience": (lambda c: c.early_stop_patience > 0, _TRAINER),
-    "save_best": (lambda c: c.save_best, _TRAINER),
-    "warm_start": (lambda c: c.warm_start, _TRAINER),
-    "warm_start_partial": (lambda c: c.warm_start_partial, _TRAINER),
-    "temporal_jitter": (lambda c: c.temporal_jitter, _TRAINER),
-    "keep_checkpoints": (lambda c: c.keep_checkpoints > 0, _TRAINER),
-    "async_checkpoint": (lambda c: c.async_checkpoint, _TRAINER),
     "input_size": (lambda c: c.input_size is not None, "queue A, item A16"),
     "autotune": (lambda c: c.autotune, "queue A, item A17"),
     "profile": (lambda c: c.profile, "queue A, item A17"),
@@ -80,7 +82,9 @@ UNPORTED = {
 
 def check_ported(config: Config):
     """Raise NotImplementedError for the first option set in ``config``
-    that this trainer does not port, and ValueError for MoViNetA2Stream,
+    that this trainer does not port and for a checkpoint that is neither
+    a .pth nor a snapshot of this trainer (an Orbax directory), and
+    ValueError for MoViNetA2Stream,
     which neither package trains (the JAX train step passes its forward
     no carry), and for MobileViTV2, an image classifier that the clip
     pipeline cannot feed (the JAX loop refuses it alike)."""
@@ -101,11 +105,17 @@ def check_ported(config: Config):
             raise NotImplementedError(
                 f"config {name}={getattr(config, name)!r} is not ported to "
                 f"the PyTorch trainer yet (ROADMAP.md, {item})")
-    if config.checkpoint and not config.checkpoint.endswith(".pth"):
+    if config.checkpoint:
+        _check_checkpoint(config.checkpoint)
+
+
+def _check_checkpoint(path: str):
+    if not path.endswith(".pth") and not ckpt.is_snapshot(path):
         raise NotImplementedError(
-            f"checkpoint {config.checkpoint!r}: the PyTorch trainer warm "
-            "starts from .pth files only; Orbax snapshots are not ported "
-            f"(ROADMAP.md, {_TRAINER})")
+            f"checkpoint {path!r}: the PyTorch trainer reads a .pth or its "
+            "own snapshot files; Orbax snapshots are the JAX package's "
+            "(export one's weights as a .pth with python -m "
+            "picklebot_tpu.convert; ROADMAP.md, queue A, item A8)")
 
 
 def _make_datasets(config: Config):
@@ -158,6 +168,25 @@ def track_best(best: float, val_loss: float) -> float:
     return val_loss if val_loss < best else best
 
 
+def _warm_graft(model, donor, model_name):
+    """warm_start_partial: load the donor tensors whose key and shape
+    match, keep the fresh values of the rest, and say which; grafting no
+    parameter at all is an error (a wrong donor)."""
+    fresh = model.state_dict()
+    merged, grafted, skipped = ckpt.graft_matching(donor, fresh)
+    params = {n for n, _ in model.named_parameters()}
+    if not params & set(grafted):
+        raise ValueError(
+            "warm_start_partial: NO donor param leaf matched the fresh "
+            f"{model_name}: wrong donor checkpoint? First donor keys: "
+            f"{[k for k, _ in skipped[:5]]}")
+    for key, why in skipped:
+        print(f"warm_start_partial: kept fresh {key} ({why})")
+    print(f"warm_start_partial: grafted {len(grafted)} tensors; "
+          f"{len(skipped)} kept fresh init")
+    model.load_state_dict(merged, strict=True)
+
+
 def train(config: Config, max_steps: Optional[int] = None,
           device="cuda") -> dict:
     """Train ``config``'s model on ``device`` (``cuda`` raises without a
@@ -167,20 +196,79 @@ def train(config: Config, max_steps: Optional[int] = None,
     device = resolve_device(device)
     policy = DtypePolicy.bf16() if config.use_autocast else DtypePolicy.f32()
     model = initialize_model(config)
+    if config.freeze_params:
+        # before the optimizer is built: it keeps the trainable ones only
+        mask = freeze(model, config.model_name, config.freeze_params)
+        fl, tl, fn, tn = frozen_summary(model, mask)
+        print(f"Freezing {fl}/{tl} param leaves ({fn:,}/{tn:,} params) "
+              f"via {config.freeze_params}")
+
+    # ---- resume (a snapshot) or warm start (a .pth, or a snapshot's
+    # weights and BatchNorm statistics with warm_start) ----
+    snap_dir = os.path.join(config.checkpoint_dir, config.model_name)
+    start_epoch = resume_skip = resume_global_step = 0
+    resume_best = resume_baseline = float("inf")
+    resume_evals = 0
+    opt_state = ema_state = None
+    if config.auto_resume and (not config.checkpoint or config.warm_start):
+        # a warm start's own snapshots outrank its donor: after a
+        # preemption the fine-tune resumes itself
+        latest = ckpt.latest_checkpoint(snap_dir)
+        if latest:
+            _check_checkpoint(latest)
+            print(f"auto_resume: found {latest}")
+            config = dataclasses.replace(config, checkpoint=latest,
+                                         warm_start=False)
     if config.checkpoint:
         print(f"Loading checkpoint {config.checkpoint}...")
-        load_pth(config.checkpoint, model)
+        # a .pth holds weights and BatchNorm statistics only: a warm start
+        if config.checkpoint.endswith(".pth"):
+            payload, warm = {"model": read_pth(config.checkpoint)}, True
+        else:
+            payload = ckpt.load_checkpoint(config.checkpoint)
+            warm = config.warm_start
+        if warm and config.warm_start_partial:
+            _warm_graft(model, payload["model"], config.model_name)
+        else:
+            model.load_state_dict(payload["model"], strict=True)
+        if not warm:
+            opt_state, ema_state = payload["optimizer"], payload["ema"]
+            start_epoch = int(payload["epoch"])
+            resume_global_step, resume_skip = (
+                int(v) for v in payload["loop_state"].tolist())
+            resume_best, resume_baseline, evals = \
+                payload["early_stop"].tolist()
+            resume_evals = int(evals)
+        elif config.warm_start:
+            print("warm_start: loaded weights + BN stats; optimizer, "
+                  "epoch and early-stop state start fresh")
+        if resume_skip:
+            print(f"Loaded checkpoint at epoch {start_epoch}, "
+                  f"optimizer step {resume_skip} within the epoch")
+        else:
+            print(f"Loaded checkpoint at epoch {start_epoch}")
     model.to(device)
     optimizer = OPTIMIZERS[config.optimizer](
         model.parameters(), weight_decay=config.weight_decay)
+    if opt_state is not None:
+        optimizer.load_state_dict(opt_state)
+    # the EMA is seeded from the (possibly restored) weights when a run
+    # turns it on, and dropped when it turns it off
+    ema = None
+    if config.ema_decay > 0:
+        ema = ema_init(model) if ema_state is None else {
+            k: v.to(device) for k, v in ema_state.items()}
     schedule = cosine_annealing_lr(config.learning_rate, config.max_iters,
                                    warmup=config.warmup_epochs)
     mean = config.mean if config.apply_mean_std else None
     std = config.std if config.apply_mean_std else None
-    train_step = make_train_step(model, optimizer, config.criterion,
-                                 schedule, policy, mean, std,
-                                 config.max_grad_norm,
-                                 config.label_smoothing, config.seed, device)
+    train_step = make_train_step(
+        model, optimizer, config.criterion, schedule, policy, mean, std,
+        config.max_grad_norm, config.label_smoothing, config.seed, device,
+        remat=int(config.remat),
+        augment=Augment(flip=config.augment_flip, crop=config.augment_crop,
+                        brightness=config.augment_brightness),
+        ema=ema, ema_decay=config.ema_decay)
     eval_step = make_eval_step(model, config.criterion, policy, mean, std,
                                device)
 
@@ -189,7 +277,9 @@ def train(config: Config, max_steps: Optional[int] = None,
     loader_kw = dict(num_workers=config.num_workers,
                      t_bucket=config.t_bucket, max_frames=config.max_frames)
     train_loader = DataLoader(train_ds, batch, shuffle=True,
-                              seed=config.seed, drop_last=True, **loader_kw)
+                              seed=config.seed, drop_last=True,
+                              temporal_jitter=config.temporal_jitter,
+                              **loader_kw)
     # the whole val set: the tail batch is padded and masked in eval_step
     val_loader = DataLoader(val_ds, batch, shuffle=False, drop_last=False,
                             **loader_kw)
@@ -202,22 +292,50 @@ def train(config: Config, max_steps: Optional[int] = None,
                               f"{config.run_name()}_finished.pth")
     start_time = time.time()
     print(f"Training... started: {time.ctime(start_time)}")
-    global_step = 0
+    global_step = resume_global_step
+    state_epoch = start_epoch   # the JAX TrainState.epoch: +1 per epoch
+    supers_in_epoch = 0         # optimizer steps into the current epoch
     train_losses_hist, train_acc_hist, all_losses = [], [], []
     val_losses, val_percent = [], []
-    best_val_loss = float("inf")
+    # two baselines, as in the JAX loop (Keras EarlyStopping): the best
+    # moves on any improvement and gates save_best; the patience baseline
+    # only on one larger than early_stop_min_delta
+    best_val_loss = resume_best
+    patience_baseline = resume_baseline
+    evals_since_improve = resume_evals
+    stopped_early = False
     summary = {}
+    snapshots = ckpt.SnapshotWriter()
+
+    def save(directory, epoch, minor=None, block=None):
+        payload = ckpt.snapshot(
+            model, optimizer, ema, state_epoch,
+            [global_step, supers_in_epoch],
+            [best_val_loss, patience_baseline, evals_since_improve])
+        snapshots.save(directory, epoch, payload,
+                       block=(not config.async_checkpoint
+                              if block is None else block), minor=minor)
 
     def run_eval():
         tot_loss, tot_correct, tot_n, tot_conf = 0.0, 0.0, 0.0, None
         print("Evaluating...")
-        for feats, labels in val_loader:
-            out = eval_step(*_pad_val_batch(feats, labels, batch))
-            tot_loss += out["loss_sum"]
-            tot_correct += out["correct"]
-            tot_n += out["samples"]
-            conf = out["confusion"].astype(np.float64)
-            tot_conf = conf if tot_conf is None else tot_conf + conf
+        # the EMA weights are scored, with the live BatchNorm statistics
+        live = None
+        if ema is not None:
+            live = {n: p.detach().clone()
+                    for n, p in model.named_parameters()}
+            _load_params(model, ema)
+        try:
+            for feats, labels in val_loader:
+                out = eval_step(*_pad_val_batch(feats, labels, batch))
+                tot_loss += out["loss_sum"]
+                tot_correct += out["correct"]
+                tot_n += out["samples"]
+                conf = out["confusion"].astype(np.float64)
+                tot_conf = conf if tot_conf is None else tot_conf + conf
+        finally:
+            if live is not None:
+                _load_params(model, live)
         if tot_n == 0:
             return float("nan"), float("nan"), 0.0, None
         return tot_loss / tot_n, tot_correct / tot_n, tot_n, tot_conf
@@ -229,10 +347,14 @@ def train(config: Config, max_steps: Optional[int] = None,
         prev_sigterm = signal.signal(signal.SIGTERM, _on_sigterm)
     steps_this_run = 0
     try:
-        for epoch in range(config.max_iters):
+        for epoch in range(start_epoch, config.max_iters):
             train_loader.set_epoch(epoch)
             epoch_correct, epoch_samples = 0.0, 0.0
             batch_losses, batch_acc = [], []
+            # a mid-epoch resume: past the steps this epoch already took
+            if epoch == start_epoch and resume_skip:
+                train_loader.skip(resume_skip * accum)
+                supers_in_epoch = resume_skip
             for feats, labels in accumulate_batches(iter(train_loader),
                                                     accum):
                 m = train_step(epoch, feats, labels, global_step)
@@ -255,8 +377,17 @@ def train(config: Config, max_steps: Optional[int] = None,
                                       global_step + j)
                 global_step += accum
                 steps_this_run += 1
+                supers_in_epoch += 1
+                if config.checkpoint_every_steps and supers_in_epoch % \
+                        config.checkpoint_every_steps == 0:
+                    # step_<epoch>_<n>, keep-1 before saving: at most two
+                    # mid-epoch snapshots on disk
+                    ckpt.prune_midepoch(snap_dir, keep=1)
+                    save(snap_dir, epoch, minor=supers_in_epoch)
                 if max_steps is not None and steps_this_run >= max_steps:
                     break
+            state_epoch += 1          # the scheduler's step
+            supers_in_epoch = 0
             if batch_losses:
                 train_losses_hist.extend(windowed_average(batch_losses))
                 train_acc_hist.extend(windowed_average(batch_acc))
@@ -265,7 +396,6 @@ def train(config: Config, max_steps: Optional[int] = None,
                 val_loss, val_acc, val_n, val_conf = run_eval()
                 val_losses.append(val_loss)
                 val_percent.append(val_acc)
-                best_val_loss = track_best(best_val_loss, val_loss)
                 summary["val_samples"] = val_n
                 if val_conf is not None:
                     summary["val_confusion"] = val_conf
@@ -278,8 +408,38 @@ def train(config: Config, max_steps: Optional[int] = None,
                       f"Val Accuracy: {val_acc * 100:.2f}%")
                 writer.add_scalar("val loss", val_loss, epoch)
                 writer.add_scalar("val accuracy", val_acc, epoch)
+                # best and patience move before the epoch's snapshot, so
+                # that a resume from it tracks them as this run does; a
+                # NaN eval (an empty val set) moves neither
+                if not math.isnan(val_loss):
+                    if val_loss < patience_baseline - \
+                            config.early_stop_min_delta:
+                        evals_since_improve = 0
+                        patience_baseline = val_loss
+                    else:
+                        evals_since_improve += 1
+                improved_best = val_loss < best_val_loss
+                best_val_loss = track_best(best_val_loss, val_loss)
+                save(snap_dir, epoch)
+                if config.checkpoint_every_steps:
+                    ckpt.prune_midepoch(snap_dir, keep=1)
+                if config.keep_checkpoints:
+                    ckpt.prune_epochs(snap_dir, keep=config.keep_checkpoints)
+                if improved_best and config.save_best:
+                    best_dir = os.path.join(config.checkpoint_dir,
+                                            f"{config.model_name}_best")
+                    ckpt.prune_epochs(best_dir, keep=1)
+                    save(best_dir, epoch)
+                if config.early_stop_patience and \
+                        evals_since_improve >= config.early_stop_patience:
+                    stopped_early = True
+                    print(f"Early stopping at epoch {epoch}: no val-loss "
+                          f"improvement in {evals_since_improve} evals "
+                          f"(best {best_val_loss:.4f})")
+                    break
             elapsed = time.time() - start_time
-            remaining = (config.max_iters - epoch - 1) * elapsed / (epoch + 1)
+            done = epoch - start_epoch + 1
+            remaining = (config.max_iters - epoch - 1) * elapsed / done
             print(f"Iter [{epoch + 1}/{config.max_iters}] - Elapsed Time: "
                   f"{elapsed:.2f}s - Remaining Time: [{remaining:.2f}]")
             if max_steps is not None:
@@ -291,8 +451,15 @@ def train(config: Config, max_steps: Optional[int] = None,
     finally:
         if prev_sigterm is not None:
             signal.signal(signal.SIGTERM, prev_sigterm)
+        snapshots.wait()
+        save(os.path.join(config.checkpoint_dir,
+                          f"{config.run_name()}_finished"), state_epoch,
+             block=True)
         torch.save({k: v.detach().cpu() for k, v in
                     model.state_dict().items()}, final_path)
+        _save_statistics(config.run_name(), train_losses_hist,
+                         train_acc_hist, val_losses, val_percent,
+                         summary.get("val_confusion"))
         writer.close()
         print(f"Model saved to {final_path}")
 
@@ -304,6 +471,29 @@ def train(config: Config, max_steps: Optional[int] = None,
         global_step=global_step, train_losses=all_losses,
         val_losses=list(val_losses),
         best_val_loss=best_val_loss if val_losses else None,
-        # early_stop_patience is refused (UNPORTED), so no run stops early
-        stopped_early=False, checkpoint=final_path)
+        stopped_early=stopped_early, checkpoint=final_path)
     return summary
+
+
+def _load_params(model, values):
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(values[n])
+
+
+def _save_statistics(run_name, train_losses, train_acc, val_losses,
+                     val_percent, confusion):
+    """``statistics/{run_name}_finished_*.npy`` (relative to the working
+    directory), the JAX loop's names and shapes: windowed train losses
+    and accuracies as (n, 1), val losses and accuracies as (n,), the last
+    eval's confusion matrix."""
+    os.makedirs("statistics", exist_ok=True)
+    base = os.path.join("statistics", f"{run_name}_finished")
+    np.save(f"{base}_train_losses.npy",
+            np.asarray(train_losses).reshape(-1, 1))
+    np.save(f"{base}_train_percent.npy",
+            np.asarray(train_acc).reshape(-1, 1))
+    np.save(f"{base}_val_losses.npy", np.asarray(val_losses))
+    np.save(f"{base}_val_percent.npy", np.asarray(val_percent))
+    if confusion is not None:
+        np.save(f"{base}_val_confusion.npy", confusion)

@@ -153,6 +153,37 @@ class AdamW:
             p.copy_(p32 - lr * (m / bc1 / denom + self.weight_decay * p32))
             self.m[i], self.v[i] = self._encode(m, v, self.m[i], self.v[i])
 
+    def state_dict(self) -> dict:
+        """``steps`` and the moments of every parameter, in ``params``
+        order, as CPU copies: an f32 tensor, or an 8-bit (codes, scales)
+        pair. ``load_state_dict`` puts them back bit for bit."""
+        def host(st):
+            if isinstance(st, tuple):
+                return tuple(t.detach().cpu().clone() for t in st)
+            return st.detach().cpu().clone()
+        return {"steps": self.steps, "m": [host(t) for t in self.m],
+                "v": [host(t) for t in self.v],
+                "shapes": [tuple(p.shape) for p in self.params]}
+
+    def load_state_dict(self, state: dict):
+        shapes = [tuple(p.shape) for p in self.params]
+        if [tuple(s) for s in state["shapes"]] != shapes:
+            raise ValueError(
+                f"optimizer state for {len(state['shapes'])} parameters "
+                f"does not fit these {len(shapes)} (a different model or "
+                "freeze_params?)")
+
+        def to(st, ref):
+            if isinstance(ref, tuple) != isinstance(st, tuple):
+                raise ValueError("optimizer state: 8-bit and f32 moments "
+                                 "mixed up (another optimizer's state?)")
+            if isinstance(st, tuple):
+                return tuple(t.to(r.device) for t, r in zip(st, ref))
+            return st.to(ref.device)
+        self.m = [to(st, ref) for st, ref in zip(state["m"], self.m)]
+        self.v = [to(st, ref) for st, ref in zip(state["v"], self.v)]
+        self.steps = int(state["steps"])
+
 
 class AdamW8bit(AdamW):
     """AdamW with 8-bit moments for tensors of at least ``min_8bit_size``

@@ -14,6 +14,13 @@ device, seeded per microbatch from (seed, position), as the JAX step folds
 the position into its key. The steps are rank-free: a batch is whatever
 the model takes, (B, T, H, W, C) clips or, for MobileViTV2, (B, H, W, C)
 images.
+
+The trainer extras of the JAX step: ``augment`` (``data/augment.py``, in
+the /255 domain before mean/std, draws keyed on the microbatch
+position), ``remat`` (``core/remat.py``), an EMA of the parameters after
+every update, and frozen parameters (``train/freeze.py``: a parameter
+that does not require grad has no gradient, no update and no part in the
+clip norm).
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ import numpy as np
 import torch
 
 from picklebot_tpu_torch.core.policy import DtypePolicy
+from picklebot_tpu_torch.core.remat import apply_remat
+from picklebot_tpu_torch.data.augment import apply_augment, draw_augment
 from picklebot_tpu_torch.ops.linear import dropout_rng
 from picklebot_tpu_torch.train.losses import (LOSSES, LOSSES_PER_SAMPLE,
                                               prepare_labels, smoothed_bce,
@@ -36,10 +45,14 @@ def preprocess(features: torch.Tensor, compute_dtype, mean=None, std=None,
         raise NotImplementedError(
             "config.input_size (the in-graph resize of ops/resize.py) is "
             "not ported yet; see ROADMAP.md")
-    x = features.to(compute_dtype) / 255.0
+    return standardize(features.to(compute_dtype) / 255.0, mean, std)
+
+
+def standardize(x: torch.Tensor, mean=None, std=None) -> torch.Tensor:
+    """The optional per-channel (x - mean) / std in x's dtype."""
     if mean is not None and std is not None:
-        mean = torch.tensor(mean, dtype=compute_dtype, device=x.device)
-        std = torch.tensor(std, dtype=compute_dtype, device=x.device)
+        mean = torch.tensor(mean, dtype=x.dtype, device=x.device)
+        std = torch.tensor(std, dtype=x.dtype, device=x.device)
         x = (x - mean) / std
     return x
 
@@ -66,21 +79,45 @@ def _micro_seed(seed: int, position: int) -> int:
     return (seed * 1_000_003 + position) % 2 ** 63
 
 
+def ema_init(model) -> dict:
+    """The EMA weights seeded from the model's parameters: {name: f32
+    copy}."""
+    return {n: p.detach().float().clone()
+            for n, p in model.named_parameters()}
+
+
 def make_train_step(model, optimizer, criterion: str, schedule,
                     policy: DtypePolicy = None, mean=None, std=None,
                     max_grad_norm=None, label_smoothing: float = 0.0,
-                    seed: int = 0, device="cuda"):
+                    seed: int = 0, device="cuda", remat: int = 0,
+                    augment=None, ema=None, ema_decay: float = 0.0):
     """step(epoch, features, labels, position=0) -> metrics, with features
     (A, B, T, H, W, C) uint8 clips or (A, B, H, W, C) images and labels
     (A, B) (numpy or tensors) and
     ``position`` the index of the step's first microbatch in the run (it
-    keys the dropout masks). Metrics: per-microbatch ``loss`` and
+    keys the dropout masks and the augmentation draws). Metrics:
+    per-microbatch ``loss`` and
     ``correct`` (A,) tensors, ``samples`` A*B, ``lr``, and ``grad_norm``
     when clipping (torch ``clip_grad_norm_``: one global norm, grads
     scaled by max/(norm + 1e-6) when it exceeds max). The summed
-    gradients stay in ``.grad`` after the step."""
+    gradients stay in ``.grad`` after the step.
+
+    ``remat`` > 0 checkpoints that many levels of module calls
+    (``core/remat.apply_remat``). ``augment`` is an ``Augment``.
+    ``ema`` ({name: f32 tensor}, from ``ema_init``) is updated in place
+    after every optimizer step, ema = d * ema + (1 - d) * p in f32, with
+    d = ``ema_decay``."""
     policy = policy or DtypePolicy.bf16()
     device = torch.device(device)
+    if remat:
+        apply_remat(model, remat)
+    aug = augment if augment is not None and augment.enabled() else None
+    if ema_decay > 0 and ema is None:
+        raise ValueError("ema_decay > 0 needs the EMA weights: pass "
+                         "ema=ema_init(model)")
+    d = np.float32(ema_decay)
+    ema_pairs = ([(ema[n], p) for n, p in model.named_parameters()]
+                 if ema_decay > 0 else [])
     loss_fn, acc_fn = LOSSES[criterion]
     if label_smoothing > 0.0:
         loss_fn = (smoothed_cross_entropy(label_smoothing) if criterion == "CE"
@@ -97,8 +134,14 @@ def make_train_step(model, optimizer, criterion: str, schedule,
         losses, corrects = [], []
         with policy.precision():
             for i in range(feats.shape[0]):
-                x = preprocess(feats[i].to(device), policy.compute_dtype,
-                               mean, std)
+                if aug is None:
+                    x = preprocess(feats[i].to(device), policy.compute_dtype,
+                                   mean, std)
+                else:
+                    x = preprocess(feats[i].to(device), policy.compute_dtype)
+                    x = apply_augment(x, draw_augment(
+                        aug, x.shape[0], seed, position + i), aug.crop)
+                    x = standardize(x, mean, std)
                 lbl = prepare_labels(criterion, lbls[i].to(device))
                 generator.manual_seed(_micro_seed(seed, position + i))
                 with dropout_rng(generator):
@@ -120,6 +163,9 @@ def make_train_step(model, optimizer, criterion: str, schedule,
                         p.grad.mul_(scale)
                 metrics["grad_norm"] = norm
             optimizer.step(lr)
+            with torch.no_grad():
+                for e, p in ema_pairs:
+                    e.mul_(float(d)).add_(p.float() * float(1 - d))
         return metrics
 
     return step

@@ -1,6 +1,7 @@
 """Port: the bench entry ``python -m picklebot_tpu_torch.bench`` on the
 CPU at tiny shapes (``--device cpu``): one parseable JSON line per run,
-the options it does not port refused by their ROADMAP.md item, the matrix
+``--remat`` on a train step, the options it does not port refused by
+their ROADMAP.md item, the matrix
 artifact written row by row, and no quiet fallback to the CPU."""
 
 import json
@@ -40,7 +41,9 @@ def _one_line(capsys):
       "--frames", "4", "--size", "32"], "clips/s"),
     (["--model", "MobileViTV2", "--mode", "train", "--batch", "2",
       "--size", "32"], "images/s"),
-], ids=["small3d_infer", "mobilevitv2_train"])
+    (["--model", "MobileNetSmall3D", "--mode", "train", "--batch", "1",
+      "--frames", "4", "--size", "32", "--remat", "1"], "clips/s"),
+], ids=["small3d_infer", "mobilevitv2_train", "small3d_train_remat1"])
 def test_bench_prints_one_line(capsys, argv, unit):
     ret = bench.main(argv + ["--steps", "1", "--warmup", "1",
                              "--device", "cpu"])
@@ -56,8 +59,7 @@ def test_bench_prints_one_line(capsys, argv, unit):
         assert "bs=1 T=4 32x32" in line["metric"]
 
 
-@pytest.mark.parametrize("flag,item", [(["--baked"], "A17"),
-                                       (["--remat", "1"], "A8")])
+@pytest.mark.parametrize("flag,item", [(["--baked"], "A17")])
 def test_unported_options_are_refused(flag, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
         bench.main(["--device", "cpu", "--mode", "infer"] + flag)

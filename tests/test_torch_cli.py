@@ -8,7 +8,8 @@ TensorBoard scalars under the JAX loop's tags, and a ``.pth`` that loads
 strict into the port and, through ``load_pth`` with ``key_map_for``, into
 the JAX package with the same values. The port's copies of the data
 loader and the tfevents writer give what the JAX package's give, and every
-trainer option not ported yet is refused with its ROADMAP.md item.
+trainer option not ported yet (the parallel layouts, resize, tooling)
+is refused with its ROADMAP.md item.
 """
 
 import dataclasses
@@ -50,6 +51,12 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True)
+def _in_tmp_path(tmp_path, monkeypatch):
+    """train() writes its statistics/ under the working directory."""
+    monkeypatch.chdir(tmp_path)
 
 
 def _config(tmp_path, name, **extra):
@@ -119,10 +126,11 @@ def test_cli_on_cuda_without_a_card_raises(tmp_path):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("ema_decay", 0.99), ("freeze_params", ["block1"]),
-    ("augment_flip", True), ("remat", 1), ("auto_resume", True),
-    ("early_stop_patience", 2), ("input_size", 64), ("data_parallel", 2),
-    ("zero_sharding", 1), ("temporal_jitter", True)])
+    ("dcn_data_parallel", 2), ("model_parallel", 2),
+    ("sequence_parallel", 2), ("pipeline_parallel", 2),
+    ("expert_parallel", 2), ("moe_experts", 4), ("autotune", True),
+    ("profile", True), ("input_size", 64), ("data_parallel", 2),
+    ("zero_sharding", 1)])
 def test_unported_options_are_refused_naming_roadmap(tmp_path, option,
                                                      value):
     config = dataclasses.replace(load_config(_config(tmp_path, "MobileViT")),
@@ -132,9 +140,15 @@ def test_unported_options_are_refused_naming_roadmap(tmp_path, option,
         train(config, device="cpu")
 
 
-def test_orbax_checkpoint_is_refused_naming_roadmap():
+def test_orbax_checkpoint_is_refused_naming_roadmap(tmp_path):
     with pytest.raises(NotImplementedError, match="Orbax.*ROADMAP"):
         check_ported(Config(checkpoint="checkpoints/MobileViT/3"))
+    # an Orbax snapshot is a directory; the port's own is one file
+    orbax = tmp_path / "MobileViT" / "step_3"
+    orbax.mkdir(parents=True)
+    with pytest.raises(NotImplementedError,
+                       match="picklebot_tpu.convert.*ROADMAP"):
+        check_ported(Config(checkpoint=str(orbax)))
 
 
 @pytest.mark.parametrize("shuffle,drop_last", [(True, True),
@@ -228,7 +242,7 @@ def test_summary_best_val_loss_and_stopped_early_follow_jax(
     """One eval per epoch (two val clips, one batch) with scripted losses:
     the summary's ``best_val_loss`` is the JAX loop's tracked best (inf
     when every eval was NaN, not None), and ``stopped_early`` is False
-    (``early_stop_patience`` is refused, ROADMAP A8)."""
+    (``early_stop_patience`` is 0)."""
     from picklebot_tpu_torch.train import loop
     scripted = _ScriptedEval(losses)
     monkeypatch.setattr(loop, "make_eval_step", lambda *a, **k: scripted)

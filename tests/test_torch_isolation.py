@@ -47,7 +47,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 "models.mobilevit", "cli", "train.loop", "train.optim",
                 "train.losses", "train.metrics", "data.loader",
                 "ops.folded_conv", "models.movinet",
-                "models.mobilenet2d_lstm", "models.mobilevitv2", "bench"):
+                "models.mobilenet2d_lstm", "models.mobilevitv2", "bench",
+                "core.remat", "data.augment", "train.freeze",
+                "train.checkpoint"):
         assert f"picklebot_tpu_torch.{mod}" in res["modules"]
     assert res["launches"] == {"pool": 0, "main": 0}
     assert res["flash_launches"] == {"packed": 0, "heads": 0, "dq": 0,
@@ -72,6 +74,7 @@ def test_unported_model_points_to_roadmap():
     ROADMAP.md item."""
     from picklebot_tpu_torch.train.loop import train
     from picklebot_tpu_torch.utils.config import Config
-    with pytest.raises(NotImplementedError, match="ema_decay.*ROADMAP.*A8"):
-        train(Config(model_name="MobileNetLarge3D", ema_decay=0.999),
+    with pytest.raises(NotImplementedError,
+                       match="data_parallel.*ROADMAP.*A18"):
+        train(Config(model_name="MobileNetLarge3D", data_parallel=2),
               device="cpu")

@@ -16,6 +16,7 @@ float noise that backpropagation carries through the train-mode
 BatchNorms is about absolute); BatchNorm statistics 1e-4.
 """
 
+import contextlib
 import json
 import math
 
@@ -209,9 +210,11 @@ def check_cli_trains_and_both_packages_load_the_pth(tmp_path, name,
     """``python -m picklebot_tpu_torch.cli cfg.json --device cpu --steps
     2`` on synthetic clips (``extra`` overrides config keys): finite
     losses, and a ``.pth`` that loads strictly into the port and into the
-    JAX package."""
+    JAX package. It runs in ``tmp_path``, where it writes its
+    ``statistics/``."""
     cfg_path = write_config(tmp_path, name, **extra)
-    summary = cli.main([cfg_path, "--device", "cpu", "--steps", "2"])
+    with contextlib.chdir(tmp_path):
+        summary = cli.main([cfg_path, "--device", "cpu", "--steps", "2"])
     assert len(summary["train_losses"]) == 4 and summary["global_step"] == 4
     assert all(math.isfinite(v) for v in summary["train_losses"])
     assert math.isfinite(summary["final_val_loss"])
