@@ -8,10 +8,14 @@
     python3 chip_smoke.py --only stream        # serve --stream's models
     python3 chip_smoke.py --only v2 bench      # MobileViTV2; the bench entry
     python3 chip_smoke.py --only trainx        # the trainer extras
+    python3 chip_smoke.py --only surface       # resize, export, HTTP
     python3 chip_smoke.py --only kernels serve # or any of kernels, fused,
                                                # conv, flash, serve, train,
                                                # trainx, timing, stream, v2,
-                                               # bench
+                                               # bench, surface
+    python3 chip_smoke.py --ab-forward DIR     # Large3D's eager forward of
+                                               # the tree at DIR and of this
+                                               # one, in turns
 
 Phases, in order (each prints JSON lines; any failure exits non-zero; a
 run with --only says on a JSON line which phases it skipped and prints no
@@ -132,10 +136,32 @@ kernels summary):
               train step (host clock, data on the card), images/s, peak
               memory, and a trace of one forward and one train step
  10. bench    python -m picklebot_tpu_torch.bench in this process:
-              MobileNetLarge3D infer at bs 16 (the fused main kernel must
-              run) and MobileViTV2 train at bs 32, 256x256 (no launch);
-              each prints its JSON line with a value above 0 and the card
- 11. summary  {"kernels": [...]}, the card line, and last
+              MobileNetLarge3D infer at bs 16, eager and --baked (the
+              exported program loaded back; the fused main kernel must
+              run in both) and MobileViTV2 train at bs 32, 256x256 (no
+              launch); each prints its JSON line with a value above 0 and
+              the card
+ 11. surface  the rest of serving at full width, MobileNetLarge3D (13
+              classes, bf16, seeded weights, BatchNorms calibrated as in
+              the serve phase): two 32x720x1280 uint8 clips through
+              make_predict_fn(input_size=224): the card's resize (f32,
+              TF32 off) against the CPU's within 1e-5 on [0, 1] pixels,
+              exactly 8 pool and 15 main launches, the logits against the
+              plain path (the serve bound); the bs-8 predict's time
+              (events) and one trace of its stages (H2D copy, cast,
+              resize, forward); Large3D and MobileViT-s exported with a
+              symbolic batch on the card, saved and loaded back: their
+              graphs' picklebot:: op nodes counted, the program at bs 1,
+              3 and 8 against the eager predictor (bit-equal expected)
+              and its exact launches; serve.make_http_server in this
+              process over a RequestBatcher on the eager model and on the
+              loaded program, at --batch-window 10 and 0: 8 clients, 32
+              POSTs of .npy clips (no cv2 on the card's machine), every
+              answer the batcher's record, each batch's records repeated
+              in process, /healthz counting them and a 413 and a 400
+              probe; requests/s and p50/p99 latency. At most 60 s of its
+              own clock
+ 12. summary  {"kernels": [...]}, the card line, and last
               {"ok": true, "device": ...}
 Per-shape numbers also go to chiprun_out/chip_smoke.json. Without CUDA it
 exits with code 2 and prints no result. Imports nothing of JAX.
@@ -324,12 +350,27 @@ V2_F32_LOGIT_TOL = 1e-4
 BENCH_RUNS = (
     ["--model", "MobileNetLarge3D", "--mode", "infer", "--batch", "16",
      "--steps", "10"],
+    ["--model", "MobileNetLarge3D", "--mode", "infer", "--batch", "16",
+     "--steps", "10", "--baked"],
     ["--model", "MobileViTV2", "--mode", "train", "--batch", "32",
      "--size", "256", "--steps", "5"],
 )
+# surface: native-resolution clips resized in the predictor to 224, the
+# resize held card vs CPU in f32 (TF32 off) on [0, 1] pixels; the exported
+# program at these batches; the HTTP server's load (clients, POSTs, the
+# --batch-window values, the body cap of its 413 probe); the phase's own
+# time limit
+SURFACE_NATIVE = (32, 720, 1280)
+SURFACE_SIZE = 224
+RESIZE_ABS_TOL = 1e-5
+SURFACE_EXPORT_BATCHES = (1, 3, 8)
+HTTP_CLIENTS, HTTP_POSTS = 8, 32
+HTTP_WINDOWS = (10.0, 0.0)
+HTTP_MAX_BODY = 8 << 20
+SURFACE_MAX_S = 60.0
 # what --only can pick; with no --only every phase runs
 PHASES = ("kernels", "fused", "conv", "flash", "serve", "train", "trainx",
-          "timing", "stream", "v2", "bench")
+          "timing", "stream", "v2", "bench", "surface")
 
 
 def emit(obj):
@@ -2260,6 +2301,506 @@ def phase_bench(counters):
 
 
 # --------------------------------------------------------------------------
+# surface: the in-graph resize, the exported program, the HTTP server
+# --------------------------------------------------------------------------
+
+def native_clips(n, seed):
+    """``n`` uint8 clips at SURFACE_NATIVE (T, H, W), RGB, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 256, (n, *SURFACE_NATIVE, 3), dtype=np.uint8)
+
+
+def stage_trace(model, feats):
+    """One bs-n predict of ``feats`` (host uint8, native size) in its four
+    stages (H2D copy, cast and /255, resize, forward with the logits'
+    copy back), each closed by a synchronize, under one torch.profiler
+    trace. Each stage's time by CUDA events recorded at its ends in that
+    call, and its device busy time from the trace: the union of the device
+    events that start within the stage's CPU range (the hand-written
+    kernels, launched through ctypes, are linked to no torch op, so a
+    stage cannot be read from its ops' device time); the H2D copies by
+    name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from picklebot_tpu_torch.ops.resize import resize_frames
+
+    stages = ("h2d", "cast", "resize", "forward")
+
+    def run(marks):
+        marks[0].record()
+        with record_function("surface_h2d"):
+            x = torch.from_numpy(feats).cuda()
+            marks[1].record()
+            torch.cuda.synchronize()
+        with record_function("surface_cast"):
+            x = x.to(torch.bfloat16) / 255.0
+            marks[2].record()
+            torch.cuda.synchronize()
+        with record_function("surface_resize"):
+            x = resize_frames(x, SURFACE_SIZE)
+            marks[3].record()
+            torch.cuda.synchronize()
+        with record_function("surface_forward"):
+            with torch.inference_mode():
+                model(x).float().cpu()
+            marks[4].record()
+            torch.cuda.synchronize()
+
+    def new_marks():
+        return [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+
+    run(new_marks())
+    marks = new_marks()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(marks)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    events = prof.events()
+    device = [e for e in events if e.device_type == cuda
+              and not e.name.startswith("surface_")]
+    ranges = {e.name[len("surface_"):]: e.time_range for e in events
+              if e.name.startswith("surface_") and e.device_type == cpu}
+    event_ms = {k: marks[i].elapsed_time(marks[i + 1])
+                for i, k in enumerate(stages)}
+    busy = {k: union_us([(e.time_range.start, e.time_range.end)
+                         for e in device
+                         if ranges[k].start <= e.time_range.start
+                         < ranges[k].end]) / 1e3 for k in stages}
+    copies = [(e.time_range.start, e.time_range.end) for e in device
+              if "HtoD" in e.name]
+    total = sum(event_ms.values())
+    if not device or total <= 0:
+        raise AssertionError(f"surface trace: {len(device)} device events, "
+                             f"stage event ms {event_ms}")
+    return {"wall_ms": wall_ms, "stage_event_ms": event_ms,
+            "stage_share": {k: v / total for k, v in event_ms.items()},
+            "h2d_gb_per_s": feats.nbytes / (event_ms["h2d"] * 1e6),
+            "trace_device_busy_ms": busy,
+            "trace_h2d_copies_ms": union_us(copies) / 1e3,
+            "trace_h2d_copies": len(copies)}
+
+
+def surface_resize(model, counters):
+    """Two native-resolution clips through ``make_predict_fn(input_size=
+    224)``: the card's resize (f32, TF32 off) against the CPU's, the
+    kernels' launches of the forward and its logits against the plain
+    path; then the bs-8 predict's time and one staged trace."""
+    import torch
+    from picklebot_tpu_torch.core.policy import DtypePolicy
+    from picklebot_tpu_torch.ops.resize import resize_frames
+    from picklebot_tpu_torch.train.step import make_predict_fn, preprocess
+
+    t_start = time.perf_counter()
+    clips = native_clips(2, seed=11)
+    pixels = torch.from_numpy(clips).float() / 255.0
+    want = resize_frames(pixels, SURFACE_SIZE)
+    with DtypePolicy.f32().precision():
+        got = resize_frames(pixels.cuda(), SURFACE_SIZE).cpu()
+    resize_err = (got - want).abs().max().item()
+    if got.shape != (2, 32, SURFACE_SIZE, SURFACE_SIZE, 3) or \
+            resize_err > RESIZE_ABS_TOL:
+        raise AssertionError(f"resize on the card: shape {tuple(got.shape)}"
+                             f", max abs err {resize_err} against the CPU "
+                             f"(tol {RESIZE_ABS_TOL})")
+    del pixels, want, got
+    x = preprocess(torch.from_numpy(clips).cuda(), torch.bfloat16,
+                   input_size=SURFACE_SIZE)
+    # the model's BatchNorms calibrated on these clips, as the serve
+    # phase calibrates on its own: logits of O(1) whose argmax means
+    # something
+    calibrate_batchnorm(model, x)
+    predict = make_predict_fn(model, DtypePolicy.bf16(),
+                              input_size=SURFACE_SIZE, device="cuda")
+    zero_counters(counters)
+    logits = predict(clips)
+    torch.cuda.synchronize()
+    launches = read_counters(counters)
+    if launches != launches_wanted(fused={"pool": 8, "main": 15}):
+        raise AssertionError(f"surface resize: launches {launches}, want "
+                             "pool 8 and main 15")
+    check = logits_against_plain(
+        "surface resize", torch.from_numpy(logits).cuda(),
+        plain_logits("surface resize", model, x))
+    del x
+    feats8 = np.concatenate([clips] * 4)
+    forward_ms = median_ms(lambda: predict(feats8), reps=2, runs=3)
+    trace = stage_trace(model, feats8)
+    out = {"phase": "surface", "part": "resize",
+           "native": list(SURFACE_NATIVE), "size": SURFACE_SIZE,
+           "resize_f32_max_abs_err": resize_err,
+           "resize_tol": RESIZE_ABS_TOL, "launches": launches,
+           **check, "batch": 8, "batch_bytes": feats8.nbytes,
+           "forward_ms": forward_ms, "trace": trace,
+           "seconds": time.perf_counter() - t_start}
+    emit(out)
+    return out
+
+
+def graph_ops(program):
+    """{picklebot op: nodes} of an exported program's graph."""
+    counts = {}
+    for node in program.graph.nodes:
+        target = str(node.target)
+        if node.op == "call_function" and target.startswith("picklebot."):
+            name = target.split(".")[1]
+            counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
+def surface_export(label, model, model_name, feats, counters, per_forward,
+                   nodes):
+    """Export ``model``'s predictor on the card with a symbolic batch,
+    save and load it back; the graph's custom-op nodes (``nodes``), the
+    loaded program at bs 1, 3 and 8 against the eager predictor (bit-equal
+    expected: the same kernels at the same plans; else the serve bound,
+    and the reading kept), and the launches over those forwards
+    (``per_forward`` each). Returns the record and the loaded predict."""
+    import torch
+    from picklebot_tpu_torch import export as ex
+    from picklebot_tpu_torch.core.policy import DtypePolicy
+    from picklebot_tpu_torch.train.step import make_predict_fn
+
+    t0 = time.perf_counter()
+    policy = DtypePolicy.bf16()
+    program = ex.export_predictor(model, policy, frames=32,
+                                  size=SURFACE_SIZE, model_name=model_name,
+                                  device="cuda")
+    export_s = time.perf_counter() - t0
+    found = graph_ops(program)
+    if found != nodes:
+        raise AssertionError(f"exported {label}: custom-op nodes {found}, "
+                             f"want {nodes}")
+    meta = {"model_name": model_name, "num_classes": 13, "criterion": "CE",
+            "frames": 32, "size": SURFACE_SIZE, "batch": -1,
+            "sample_fps": 0.0, "compute_dtype": "bfloat16",
+            "device": "cuda:0", "torch_version": torch.__version__}
+    t1 = time.perf_counter()
+    path = os.path.join(tempfile.mkdtemp(), "program.pt2")
+    ex.save_artifact(path, program, meta)
+    predict, _ = ex.load_artifact(path, "cuda")
+    size = os.path.getsize(path)
+    os.remove(path)
+    load_s = time.perf_counter() - t1
+    eager = make_predict_fn(model, policy, device="cuda")
+    readings = []
+    zero_counters(counters)
+    for b in SURFACE_EXPORT_BATCHES:
+        readings.append((b, predict(feats[:b])))
+    torch.cuda.synchronize()
+    launches = read_counters(counters)
+    n = len(SURFACE_EXPORT_BATCHES)
+    want = launches_wanted(**{m: {k: v * n for k, v in c.items()}
+                              for m, c in per_forward.items()})
+    if launches != want:
+        raise AssertionError(f"exported {label}: launches {launches} over "
+                             f"{n} forwards, want {want}")
+    per_batch = {}
+    for b, got in readings:
+        ref = eager(feats[:b])
+        diff = float(np.abs(got - ref).max())
+        rec = {"max_abs_diff": diff, "bit_equal": diff == 0.0}
+        if diff:
+            rec.update(logits_against_plain(
+                f"exported {label} bs {b}", torch.from_numpy(got),
+                torch.from_numpy(ref)))
+        per_batch[str(b)] = rec
+    out = {"phase": "surface", "part": f"export_{label}", "nodes": found,
+           "launches": launches, "forwards": n, "per_batch": per_batch,
+           "export_s": export_s, "save_load_s": load_s,
+           "artifact_bytes": size, "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out, predict
+
+
+def _post(port, body, timeout=120):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("POST", "/predict", body=body)
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def _post_length_only(port, length):
+    """POST /predict that declares ``length`` body bytes and sends none:
+    the server must answer from the header alone."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    try:
+        conn.putrequest("POST", "/predict")
+        conn.putheader("Content-Length", str(length))
+        conn.endheaders()
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def _healthz(port):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    try:
+        conn.request("GET", "/healthz")
+        return json.loads(conn.getresponse().read())
+    finally:
+        conn.close()
+
+
+def surface_http(label, records, clips, window, counters):
+    """``serve.make_http_server`` in this process over a
+    ``RequestBatcher(records)`` at ``window`` ms: HTTP_CLIENTS threads
+    send HTTP_POSTS POSTs of ``.npy`` clips (this machine has no cv2, so
+    the harness's classify_path ``np.load``s the body; the server takes
+    any classify_path). Every answer must be the batcher's record for
+    its clip, each batch's records those of the same batch run again in
+    process, and, against each clip served alone, pred and label equal
+    with the confidence within 1e-3 (the batch size moves the kernels'
+    plans); the launches 8 pool and 15 main per predictor call; /healthz
+    then counts the POSTs and, after one 413 and one 400 probe, two
+    errors."""
+    import hashlib
+    import io
+    import threading
+    import torch
+    from picklebot_tpu_torch import serve
+
+    bodies, digests = [], []
+    for clip in clips:
+        buf = io.BytesIO()
+        np.save(buf, clip)
+        bodies.append(buf.getvalue())
+        digests.append(hashlib.sha1(clip.tobytes()).hexdigest())
+    calls = []
+
+    def recording(batch):
+        recs = records(batch)
+        calls.append((batch, recs))
+        return recs
+
+    batcher = serve.RequestBatcher(recording, max_batch=8, window_ms=window)
+    srv = serve.make_http_server(
+        0, lambda path: batcher.submit(np.load(path, allow_pickle=False)),
+        {"mode": label}, max_body=HTTP_MAX_BODY, request_timeout=120.0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    port = srv.server_address[1]
+    answers = [None] * HTTP_POSTS
+    latency = [None] * HTTP_POSTS
+    per_client = HTTP_POSTS // HTTP_CLIENTS
+
+    def client(c):
+        for j in range(per_client):
+            i = c * per_client + j
+            t0 = time.perf_counter()
+            answers[i] = _post(port, bodies[i % len(bodies)])
+            latency[i] = (time.perf_counter() - t0) * 1e3
+
+    try:
+        zero_counters(counters)
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(HTTP_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = read_counters(counters)
+        health = _healthz(port)
+        if health["requests"] != HTTP_POSTS or health["errors"] != 0:
+            raise AssertionError(f"http {label}: /healthz {health}")
+        too_big = _post_length_only(port, HTTP_MAX_BODY + 1)
+        not_npy = _post(port, b"not a clip")
+        probes = _healthz(port)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    if too_big[0] != 413 or not_npy[0] != 400 or \
+            probes["requests"] != HTTP_POSTS + 2 or probes["errors"] != 2:
+        raise AssertionError(f"http {label}: probes {too_big} {not_npy}, "
+                             f"/healthz {probes}")
+    if any(a is None or a[0] != 200 for a in answers):
+        raise AssertionError(f"http {label}: answers {answers}")
+    n_calls = len(calls)
+    if launches != launches_wanted(fused={"pool": 8 * n_calls,
+                                          "main": 15 * n_calls}):
+        raise AssertionError(f"http {label}: launches {launches} over "
+                             f"{n_calls} predictor calls")
+    served = {}
+    for batch, recs in calls:
+        if records(batch) != recs:
+            raise AssertionError(f"http {label}: a batch of {len(batch)} "
+                                 "gives other records when run again")
+        for clip, rec in zip(batch, recs):
+            served.setdefault(hashlib.sha1(clip.tobytes()).hexdigest(),
+                              []).append(rec)
+    alone = [records([clip])[0] for clip in clips]
+    conf_diff = 0.0
+    for i, (_, rec) in enumerate(answers):
+        k = i % len(clips)
+        if rec not in served[digests[k]]:
+            raise AssertionError(f"http {label}: answer {rec} is no record "
+                                 "the batcher made for its clip")
+        ref = alone[k]
+        if (rec["pred"], rec["label"]) != (ref["pred"], ref["label"]) or \
+                abs(rec["confidence"] - ref["confidence"]) > 1e-3:
+            raise AssertionError(f"http {label}: answer {rec}, the clip "
+                                 f"alone {ref}")
+        conf_diff = max(conf_diff, abs(rec["confidence"] - ref["confidence"]))
+    lat = sorted(latency)
+    out = {"phase": "surface", "part": f"http_{label}", "window_ms": window,
+           "posts": HTTP_POSTS, "clients": HTTP_CLIENTS,
+           "predictor_calls": n_calls,
+           "batch_sizes": [len(b) for b, _ in calls],
+           "requests_per_s": HTTP_POSTS / wall_s,
+           "latency_p50_ms": lat[len(lat) // 2],
+           "latency_p99_ms": lat[min(len(lat) - 1,
+                                     int(0.99 * len(lat)))],
+           "launches": launches,
+           "max_confidence_diff_vs_alone": conf_diff,
+           "healthz": probes, "wall_s": wall_s}
+    emit(out)
+    return out
+
+
+def phase_surface(gpu_line, feats, x, counters):
+    """MobileNetLarge3D at full width (13 classes, bf16, seeded weights,
+    BatchNorms calibrated on the resized clips): the in-graph resize of
+    native-resolution clips, the exported program (and MobileViT-s's),
+    and the HTTP server over the eager model and over the loaded program.
+    Fails past SURFACE_MAX_S of its own clock."""
+    from picklebot_tpu_torch import serve
+    from picklebot_tpu_torch.core.policy import DtypePolicy
+    from picklebot_tpu_torch.train.step import make_predict_fn
+    from picklebot_tpu_torch.utils.config import Config
+
+    t_start = time.perf_counter()
+    model = large3d().cuda().eval()
+    out = {"card": gpu_line, "resize": surface_resize(model, counters)}
+    out["export_large3d"], artifact = surface_export(
+        "large3d", model, "MobileNetLarge3D", feats, counters,
+        {"fused": {"pool": 8, "main": 15}},
+        {"fused_pool": 8, "fused_main": 15})
+    vit = mobilevit_s().cuda().eval()
+    calibrate_batchnorm(vit, x)
+    packed = sum(VIT_PACKED.values())
+    out["export_mobilevit"], _ = surface_export(
+        "mobilevit", vit, "MobileViT", feats, counters,
+        {"fused": {"main": 7}, "flash": {"packed": packed},
+         "conv": {"fwd": 6}},
+        {"fused_main": 7, "flash_packed": packed, "folded_conv_fwd": 6})
+    del vit
+    config = Config(model_name="MobileNetLarge3D", num_classes=13,
+                    t_bucket=16, max_frames=128).validate()
+    eager = serve.records_fn(make_predict_fn(model, DtypePolicy.bf16(),
+                                             device="cuda"), config, 8)
+    exported = serve.exported_records_fn(
+        artifact, {"criterion": "CE", "num_classes": 13, "batch": -1}, 8)
+    clips = list(feats)
+    for label, records in (("eager", eager), ("exported", exported)):
+        for window in HTTP_WINDOWS:
+            out[f"http_{label}_{window:g}"] = surface_http(
+                label, records, clips, window, counters)
+    out["seconds"] = time.perf_counter() - t_start
+    emit({"phase": "surface", "card": gpu_line, "seconds": out["seconds"]})
+    if out["seconds"] > SURFACE_MAX_S:
+        raise AssertionError(f"surface phase took {out['seconds']:.1f} s "
+                             f"(at most {SURFACE_MAX_S})")
+    return out
+
+
+# --------------------------------------------------------------------------
+# --ab-forward: Large3D's eager serve forward, this tree against another
+# --------------------------------------------------------------------------
+
+# run in a fresh process with the tree at ROOT first on sys.path: Large3D
+# (13 classes, seed 0, bf16) on a bs-8 32x224x224 batch, its device busy
+# ms from one trace, then three times the forward's CUDA-event ms (median
+# of 5 windows of 10 after warm-up), each followed, where the tree routes
+# kernel calls through ops/library.py, by the same with every kernel
+# call forced through its custom op
+AB_SNIPPET = r"""
+import importlib.util, json, sys
+sys.path.insert(0, {root!r})
+spec = importlib.util.spec_from_file_location("cs", {script!r})
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+import numpy as np, torch
+from picklebot_tpu_torch.utils.build import build_all
+build_all()
+from picklebot_tpu_torch.train.step import preprocess
+model = cs.large3d().cuda().eval()
+rng = np.random.RandomState(0)
+feats = rng.randint(0, 256, (8, 32, 224, 224, 3)).astype(np.uint8)
+x = preprocess(torch.from_numpy(feats).cuda(), torch.bfloat16)
+
+def forward_ms():
+    with torch.inference_mode():
+        return cs.median_ms(lambda: model(x), reps=10)
+
+with torch.inference_mode():
+    prof = cs.profile_run("large3d", lambda: model(x), "ab_forward")
+out = {{"root": {root!r}, "device_busy_ms": prof["device_busy_ms"],
+        "kernel_launches": prof["kernel_launches"], "forward_ms": [],
+        "forward_ms_ops_forced": []}}
+try:
+    from picklebot_tpu_torch.ops import library
+except ImportError:
+    library = None
+direct = library.use_ops if library is not None else None
+for _ in range(3):
+    out["forward_ms"].append(forward_ms())
+    if library is not None:
+        library.use_ops = lambda: True
+        out["forward_ms_ops_forced"].append(forward_ms())
+        library.use_ops = direct
+print("AB " + json.dumps(out), flush=True)
+"""
+
+
+def ab_forward(parent_root):
+    """Large3D's eager serve forward of the tree at ``parent_root`` (A)
+    and of this tree (B) in turns A B B A A B B A, each in its own
+    process."""
+    results = []
+    for root in (parent_root, ROOT, ROOT, parent_root) * 2:
+        proc = subprocess.run(
+            [sys.executable, "-c", AB_SNIPPET.format(
+                root=root, script=os.path.abspath(__file__))],
+            capture_output=True, text=True, timeout=600)
+        lines = [l for l in proc.stdout.splitlines() if l.startswith("AB ")]
+        if proc.returncode != 0 or not lines:
+            raise AssertionError(f"ab_forward on {root}: rc "
+                                 f"{proc.returncode}\n{proc.stderr[-3000:]}")
+        rec = json.loads(lines[-1][3:])
+        rec["tree"] = "parent" if root == parent_root else "change"
+        emit({"phase": "ab_forward", **rec})
+        results.append(rec)
+
+    def stats(vals):
+        vals = sorted(vals)
+        mid = len(vals) // 2
+        return {"median": (vals[mid] + vals[~mid]) / 2, "min": vals[0],
+                "max": vals[-1], "n": len(vals)}
+    summary = {
+        "parent": stats([v for r in results if r["tree"] == "parent"
+                         for v in r["forward_ms"]]),
+        "change": stats([v for r in results if r["tree"] == "change"
+                         for v in r["forward_ms"]]),
+        "change_ops_forced": stats([v for r in results
+                                    for v in r["forward_ms_ops_forced"]]),
+        "device_busy_ms": stats([r["device_busy_ms"] for r in results])}
+    emit({"phase": "ab_forward", "summary": summary})
+    return results
+
+
+# --------------------------------------------------------------------------
 # train
 # --------------------------------------------------------------------------
 
@@ -3070,13 +3611,21 @@ def parse_args(argv):
         "clips, chunks against the whole clip, causality, chunk latency, "
         "MobileNetLarge2D's CLI run), v2 (MobileViTV2: logits and a train "
         "step against the CPU, timings, traces), bench (the port's bench "
-        "entry on two runs). A partial run prints no kernels summary")
+        "entry on three runs), surface (the in-graph resize, the exported "
+        "program, the HTTP server). A partial run prints no kernels "
+        "summary")
+    ap.add_argument(
+        "--ab-forward", metavar="DIR", default=None,
+        help="instead of the phases: MobileNetLarge3D's eager serve "
+        "forward of the tree at DIR and of this one in turns A B B A A B "
+        "B A")
     return ap.parse_args(argv)
 
 
 def main(argv=None):
     import torch
-    only = set(parse_args(argv).only or ())
+    args = parse_args(argv)
+    only = set(args.only or ())
 
     def selected(phase):
         return not only or phase in only
@@ -3109,6 +3658,14 @@ def main(argv=None):
 
     seconds = {"build": time.perf_counter() - t0,
                "profiler_warmup": warm_s}
+    if args.ab_forward:
+        ab_forward(os.path.abspath(args.ab_forward))
+        print(gpu_line, flush=True)
+        emit({"ok": True, "ab_forward": args.ab_forward,
+              "device": {"platform": "gpu",
+                         "kind": torch.cuda.get_device_name(0),
+                         "count": torch.cuda.device_count()}})
+        return 0
     from picklebot_tpu_torch.ops import attention
     routed = {n: layers for n, layers in VIT_ATTENTION
               if n >= attention._PACKED_MIN_SEQ}
@@ -3144,7 +3701,7 @@ def main(argv=None):
     if sass:
         seconds["kernels"] = time.perf_counter() - t0
     if any(selected(p) for p in ("serve", "train", "trainx", "timing",
-                                 "stream")):
+                                 "stream", "surface")):
         feats, x = clip_batch()
     if selected("serve"):
         t0 = time.perf_counter()
@@ -3229,6 +3786,10 @@ def main(argv=None):
         t0 = time.perf_counter()
         bench_runs = phase_bench(counters)
         seconds["bench"] = time.perf_counter() - t0
+    surface = None
+    if selected("surface"):
+        surface = phase_surface(gpu_line, feats, x, counters)
+        seconds["surface"] = surface["seconds"]
     seconds["total"] = time.perf_counter() - T_START
     emit({"phase": "seconds", **seconds})
 
@@ -3240,7 +3801,7 @@ def main(argv=None):
               "serve": {"MobileNetLarge3D": large, "MobileViT-s": vit,
                         "MobileNetSmall3D": small, "MoViNetA2": movinet},
               "train": train, "trainx": trainx, "stream": stream, "v2": v2,
-              "bench": bench_runs}
+              "bench": bench_runs, "surface": surface}
     if only:
         skipped = [p for p in PHASES if not selected(p)
                    and not (p in ("fused", "conv", "flash")
@@ -3276,6 +3837,10 @@ def main(argv=None):
                  for r, launches in trainx["remat"][dtype][
                      "launches"].items()}
     runs.update({k: v["fused"] for k, v in vit_remat.items()})
+    surface_runs = {f"surface_{k}": v["launches"]
+                    for k, v in surface.items()
+                    if isinstance(v, dict) and "launches" in v}
+    runs.update({k: v["fused"] for k, v in surface_runs.items()})
     flash_runs = {"serve_mobilevit": vit["launches"]["flash"],
                   **{f"forward_mobilevit_{b}": vit[b]["launches"]["flash"]
                      for b in ("pallas", "pallas_packed")},
@@ -3289,6 +3854,8 @@ def main(argv=None):
                       for b in ("pallas", "pallas_packed")}
     flash_runs.update(heads_bwd_runs)
     flash_runs.update({k: v["flash"] for k, v in vit_remat.items()})
+    flash_runs["surface_export_mobilevit"] = surface_runs[
+        "surface_export_mobilevit"]["flash"]
     conv_runs = {"serve_mobilevit": vit["launches"]["conv"],
                  **{f"forward_mobilevit_{b}": vit[b]["launches"]["conv"]
                     for b in ("pallas", "pallas_packed")},
@@ -3297,7 +3864,9 @@ def main(argv=None):
                  **{f"train_step_mobilevit_{b}":
                     train["backends"][b]["launches"]["conv"]
                     for b in ("pallas", "pallas_packed")},
-                 **{k: v["conv"] for k, v in vit_remat.items()}}
+                 **{k: v["conv"] for k, v in vit_remat.items()},
+                 "surface_export_mobilevit":
+                 surface_runs["surface_export_mobilevit"]["conv"]}
     tpu = "picklebot_tpu/ops/pallas/"
     kernels = [
         fused_entry("pool", 86, fused_per, runs),

@@ -49,10 +49,13 @@ a CPU row has no device rate). The JAX matrix's
 count of bytes accessed.
 
 ``--remat N`` checkpoints N levels of module calls in a train step
-(``core/remat.py``). Not offered: ``--baked`` (the AOT-exported serving
-program, ROADMAP.md item A17) raises; the JAX bench's ``--s2d``,
-``--early-fold`` and ``--fold-span`` pick TPU layout rewrites that the
-port does not carry.
+(``core/remat.py``). ``--baked`` (inference only) times the serving
+program of ``export.py`` instead of the eager model: the predictor
+exported with the weights inside, saved and loaded back, the kernels in
+it as custom ops, as the JAX bench's ``graph-baked`` times its AOT
+serving program. Not offered: the JAX bench's ``--s2d``, ``--early-fold``
+and ``--fold-span`` pick TPU layout rewrites that the port does not
+carry.
 """
 
 from __future__ import annotations
@@ -62,6 +65,7 @@ import json
 import math
 import os
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -83,7 +87,7 @@ PEAK_BF16_FLOPS = 989e12            # H100 SXM, dense
 IMAGE_MODELS = ("MobileViTV2",)
 
 # bench.py's MATRIX_ROWS: (model, variant, mode, batch, frames, size,
-# baked[, remat]); the baked rows are recorded as unported
+# baked[, remat])
 MATRIX_ROWS = [
     ("MobileNetLarge3D", None, "train", 16, 32, 224, False),
     ("MobileNetLarge3D", None, "train", 64, 32, 224, False),
@@ -130,13 +134,13 @@ MATRIX_ROWS = [
 ]
 
 
-def check_ported(baked: bool):
-    """Raise NotImplementedError for an option the port does not have,
-    naming its ROADMAP.md item."""
-    if baked:
-        raise NotImplementedError(
-            "--baked (weights baked into an exported serving program) is "
-            "not ported (ROADMAP.md, queue A, item A17)")
+def check_ported(baked: bool, mode: str = "infer"):
+    """Raise ValueError for an option that the mode does not take."""
+    if baked and mode != "infer":
+        raise ValueError(
+            "--baked times the exported serving program (export.py, "
+            "ROADMAP.md A17), which is inference-only (training weights "
+            "change every step); add --mode infer")
 
 
 def bench_config(model: str, variant: str = "xxs") -> Config:
@@ -150,6 +154,21 @@ def input_shape(model: str, batch: int, frames: int, size: int):
     if model in IMAGE_MODELS:
         return (batch, size, size, 3)
     return (batch, frames, size, size, 3)
+
+
+def baked_program(model, policy, model_name, shape, device):
+    """The serving program of ``export.py`` for ``model``: exported with
+    a symbolic batch at ``shape``'s frames and size, saved and loaded
+    back, as ``serve --exported`` runs it."""
+    from picklebot_tpu_torch.export import export_predictor, save_artifact
+    image = model_name in IMAGE_MODELS
+    program = export_predictor(model, policy, frames=None if image
+                               else shape[1], size=shape[-2],
+                               model_name=model_name, device=device)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "program.pt2")
+        save_artifact(path, program, {})
+        return torch.export.load(path).module()
 
 
 def device_line(device: torch.device) -> str:
@@ -168,8 +187,9 @@ class Workload:
     already there: ``run()`` enqueues one step."""
 
     def __init__(self, cfg: Config, mode: str, shape, device,
-                 remat: int = 0):
+                 remat: int = 0, baked: bool = False):
         self.cfg, self.mode, self.device = cfg, mode, device
+        self.program = None
         self.policy = DtypePolicy.bf16() if cfg.use_autocast else \
             DtypePolicy.f32()
         self.model = initialize_model(cfg).to(device)
@@ -191,12 +211,18 @@ class Workload:
         elif mode == "infer":
             self.feats = torch.from_numpy(feats).to(device)
             self.model.eval()
+            if baked:
+                self.program = baked_program(self.model, self.policy,
+                                             cfg.model_name, shape, device)
         else:
             raise ValueError(f"mode {mode!r} (train or infer)")
 
     def run(self):
         if self.mode == "train":
             return self.step(0, self.feats, self.labels)["loss"]
+        if self.program is not None:
+            with torch.no_grad(), self.policy.precision():
+                return self.program(self.feats)
         with torch.inference_mode(), self.policy.precision():
             return self.model(preprocess(self.feats,
                                          self.policy.compute_dtype))
@@ -281,11 +307,12 @@ def measure(work: Workload, steps: int, warmup: int,
 
 
 def metric_name(model, variant, mode, batch, frames, size,
-                device) -> str:
+                device, baked=False) -> str:
     image = model in IMAGE_MODELS
     per = "card" if device.type == "cuda" else "cpu"
     what = ("train step fwd+bwd+adamw8bit" if mode == "train"
-            else "batched inference")
+            else "batched inference, weights baked (exported program)"
+            if baked else "batched inference")
     clip = f"{size}x{size}" if image else f"T={frames} {size}x{size}"
     name = f"{model}-{variant}" if model == "MobileViT" else model
     return (f"{'images' if image else 'clips'}/sec/{per} ({name} {what}, "
@@ -306,10 +333,10 @@ def measure_row(model, variant, mode, batch, frames, size, baked, remat=0,
     if remat:
         row["remat"] = remat
     try:
-        check_ported(baked)
+        check_ported(baked, mode)
         work = Workload(bench_config(model, variant), mode,
                         input_shape(model, batch, frames, size), device,
-                        remat)
+                        remat, baked)
         row["value"], row["steps_per_window"] = measure(work, steps, warmup)
         step_s = batch / row["value"]
         row["ms_per_step"] = 1e3 * step_s
@@ -390,7 +417,8 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (default; fails without a card) or cpu")
     p.add_argument("--baked", action="store_true",
-                   help="not ported (ROADMAP.md A17): raises")
+                   help="infer: time the exported serving program "
+                   "(export.py) loaded back, not the eager model")
     p.add_argument("--remat", type=int, default=0,
                    help="train: checkpoint this many levels of module "
                    "calls (activation rematerialization)")
@@ -410,15 +438,15 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     if args.matrix:
         return run_matrix(args)
-    check_ported(args.baked)
+    check_ported(args.baked, args.mode)
     device = resolve_device(args.device)
     shape = input_shape(args.model, args.batch, args.frames, args.size)
     work = Workload(bench_config(args.model, args.variant), args.mode,
-                    shape, device, args.remat)
+                    shape, device, args.remat, args.baked)
     value, n = measure(work, args.steps, args.warmup)
     line = {"metric": metric_name(args.model, args.variant, args.mode,
                                   args.batch, args.frames, args.size,
-                                  device),
+                                  device, args.baked),
             "value": value,
             "unit": "images/s" if args.model in IMAGE_MODELS else "clips/s",
             "vs_baseline": None,

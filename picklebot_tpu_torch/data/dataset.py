@@ -151,7 +151,10 @@ def pad_collate(clips: Sequence[np.ndarray], labels: Sequence[int],
     shapes = {c.shape[1:] for c in clips}
     if len(shapes) > 1:
         raise ValueError(
-            f"clips in one batch have mixed frame shapes {sorted(shapes)}")
+            f"clips in one batch have mixed frame shapes {sorted(shapes)}; "
+            "a mixed-resolution dataset needs offline normalization "
+            "(scripts/preprocess_dataset.py --resize) — config.input_size "
+            "resizes on device but batches must still stack uniformly")
     t_out = bucket_frames(max(c.shape[0] for c in clips), t_bucket,
                           max_frames)
     batch = np.zeros((len(clips), t_out) + clips[0].shape[1:], np.uint8)

@@ -13,7 +13,9 @@ reference's quirks for checkpoint parity:
 On a CUDA tensor the conv chain (expand, depthwise, SE, project) runs in
 the fused kernels of ``ops/fused_bottleneck.py`` (in training through its
 ``FusedBottleneckFn``, whose backward recomputes the plain chain); on the
-CPU, or with ``kernels=False``, it runs the plain chain of modules. The
+CPU, or with ``kernels=False``, it runs the plain chain of modules. While
+``torch.export`` traces, the kernels' custom ops are taken on the CPU too,
+so that an exported program holds them whatever its device. The
 folded forwards of the JAX package (``early_fold``, ``fold_span``) are
 not ported.
 
@@ -32,6 +34,7 @@ from typing import Callable
 from torch import nn
 
 from picklebot_tpu_torch.ops import activations as act
+from picklebot_tpu_torch.ops import library
 from picklebot_tpu_torch.ops.conv import Conv2d, Conv3d
 from picklebot_tpu_torch.ops.fused_bottleneck import fused_bottleneck
 from picklebot_tpu_torch.ops.linear import ChannelDropout
@@ -82,7 +85,7 @@ class Bottleneck3D(nn.Module):
         return tuple(w.to(dtype).contiguous() for w in (w1, wd, w2)) + se
 
     def forward(self, x, kernels: bool = True):
-        if kernels and x.is_cuda:
+        if kernels and (x.is_cuda or library.use_ops()):
             x = fused_bottleneck(x.contiguous(),
                                  *self.kernel_weights(x.dtype),
                                  self.kernel_size, self.stride, self.use_se)

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from picklebot_tpu_torch.ops import library
 from picklebot_tpu_torch.ops.folded_conv import (folded_conv_s1,
                                                  folded_conv_s1_eligible)
 
@@ -117,7 +118,8 @@ class Conv3d(nn.Module):
             out = pointwise_conv(
                 x, self.weight.view(self.out_channels, self.in_channels).t())
             return out if bias is None else out + bias
-        if kernels and x.is_cuda and self.takes_folded_kernel(x):
+        if kernels and (x.is_cuda or library.use_ops()) and \
+                self.takes_folded_kernel(x):
             w = self.weight.permute(2, 3, 4, 1, 0).to(x.dtype).contiguous()
             out = folded_conv_s1(x.contiguous(), w, self._same_pads())
             return out if bias is None else out + bias

@@ -34,7 +34,11 @@ kernels: f32 scores and softmax statistics, P rounded to v's dtype before
 the PV product (to dO's before dV), dS to the inputs' dtype before dQ and
 dK, f32 accumulation, outputs cast at the end. The plain forward is ``sdpa`` (the JAX package's
 ``sdpa_xla``: f32 logits and softmax, probabilities rounded to v's dtype,
-the product accumulated in f32) with split and merged heads.
+the product accumulated in f32) with split and merged heads. The three
+forwards without lse are also the custom ops ``picklebot::flash_packed``,
+``picklebot::flash_heads`` and ``picklebot::flash_qkvpacked``
+(``ops/library.py``), through which a traced call goes, so that an
+exported program keeps them.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ import math
 
 import torch
 
+from picklebot_tpu_torch.ops import library
 from picklebot_tpu_torch.ops.linear import dropout_mask
 
 LAUNCHES = {"packed": 0, "heads": 0, "dq": 0, "dkv": 0}
@@ -370,13 +375,8 @@ def _qkvpacked_forward_views(qkv, with_lse):
                       None if lse is None else lse.view(s, h, n))
 
 
-def _packed_forward(q, k, v, heads, scale, with_lse):
-    """(out, lse or None): the kernel on a CUDA tensor, the plain version
-    on a CPU one."""
-    if q.device.type == "cpu":
-        res = flash_attention_packed_reference(q, k, v, heads, scale,
-                                               with_lse)
-        return res if with_lse else (res, None)
+def _packed_launch(q, k, v, heads, scale, with_lse):
+    """(out, lse or None) from the kernel on CUDA tensors."""
     _check(q, k, v)
     out, lse, views = _packed_forward_views(q, k, v, heads, with_lse)
     _launch(*views, scale)
@@ -384,10 +384,7 @@ def _packed_forward(q, k, v, heads, scale, with_lse):
     return out, lse
 
 
-def _heads_forward(q, k, v, scale, with_lse):
-    if q.device.type == "cpu":
-        res = sdpa(q, k, v, scale, with_lse)
-        return res if with_lse else (res, None)
+def _heads_launch(q, k, v, scale, with_lse):
     _check(q, k, v)
     out, lse, views = _heads_forward_views(q, k, v, with_lse)
     _launch(*views, scale)
@@ -395,16 +392,91 @@ def _heads_forward(q, k, v, scale, with_lse):
     return out, lse
 
 
-def _qkvpacked_forward(qkv, scale, with_lse):
-    if qkv.device.type == "cpu":
-        res = sdpa(*_qkv_split(qkv), scale, with_lse)
-        out, lse = res if with_lse else (res, None)
-        return out.transpose(-2, -3), lse
+def _qkvpacked_launch(qkv, scale, with_lse):
     _check(*_qkv_split(qkv))
     out, lse, views = _qkvpacked_forward_views(qkv, with_lse)
     _launch(*views, scale)
     LAUNCHES["heads"] += 1
     return out, lse
+
+
+def _packed_forward(q, k, v, heads, scale, with_lse):
+    """(out, lse or None): the kernel on a CUDA tensor, the plain version
+    on a CPU one."""
+    if q.device.type == "cpu":
+        res = flash_attention_packed_reference(q, k, v, heads, scale,
+                                               with_lse)
+        return res if with_lse else (res, None)
+    return _packed_launch(q, k, v, heads, scale, with_lse)
+
+
+def _heads_forward(q, k, v, scale, with_lse):
+    if q.device.type == "cpu":
+        res = sdpa(q, k, v, scale, with_lse)
+        return res if with_lse else (res, None)
+    return _heads_launch(q, k, v, scale, with_lse)
+
+
+def _qkvpacked_forward(qkv, scale, with_lse):
+    if qkv.device.type == "cpu":
+        res = sdpa(*_qkv_split(qkv), scale, with_lse)
+        out, lse = res if with_lse else (res, None)
+        return out.transpose(-2, -3), lse
+    return _qkvpacked_launch(qkv, scale, with_lse)
+
+
+# The inference forwards (no lse) as custom ops (ops/library.py): the
+# launch on CUDA tensors, the plain version on CPU ones, the output's
+# shape and dtype in the fake.
+
+@torch.library.custom_op(f"{library.NAMESPACE}::flash_packed",
+                         mutates_args=(), device_types="cuda")
+def _packed_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               heads: int, scale: float) -> torch.Tensor:
+    return _packed_launch(q, k, v, heads, scale, False)[0]
+
+
+@_packed_op.register_kernel("cpu")
+def _packed_op_cpu(q, k, v, heads, scale):
+    return flash_attention_packed_reference(q, k, v, heads, scale)
+
+
+@_packed_op.register_fake
+def _packed_op_fake(q, k, v, heads, scale):
+    return q.new_empty(q.shape)
+
+
+@torch.library.custom_op(f"{library.NAMESPACE}::flash_heads",
+                         mutates_args=(), device_types="cuda")
+def _heads_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              scale: float) -> torch.Tensor:
+    return _heads_launch(q, k, v, scale, False)[0]
+
+
+@_heads_op.register_kernel("cpu")
+def _heads_op_cpu(q, k, v, scale):
+    return sdpa(q, k, v, scale)
+
+
+@_heads_op.register_fake
+def _heads_op_fake(q, k, v, scale):
+    return q.new_empty(q.shape)
+
+
+@torch.library.custom_op(f"{library.NAMESPACE}::flash_qkvpacked",
+                         mutates_args=(), device_types="cuda")
+def _qkvpacked_op(qkv: torch.Tensor, scale: float) -> torch.Tensor:
+    return _qkvpacked_launch(qkv, scale, False)[0]
+
+
+@_qkvpacked_op.register_kernel("cpu")
+def _qkvpacked_op_cpu(qkv, scale):
+    return sdpa(*_qkv_split(qkv), scale).transpose(-2, -3).contiguous()
+
+
+@_qkvpacked_op.register_fake
+def _qkvpacked_op_fake(qkv, scale):
+    return qkv.new_empty((*qkv.shape[:-3], *qkv.shape[-2:]))
 
 
 def _needs_graph(*ts) -> bool:
@@ -530,6 +602,8 @@ def flash_attention_packed(q, k, v, heads: int, scale=None,
                 "flash attention: the lse is the backward's residual and "
                 "has no gradient; ask for it under torch.no_grad()")
         return FlashPackedFn.apply(q, k, v, heads, scale)
+    if library.use_ops() and not with_lse:
+        return _packed_op(q, k, v, heads, scale)
     out, lse = _packed_forward(q, k, v, heads, scale, with_lse)
     return (out, lse) if with_lse else out
 
@@ -541,6 +615,8 @@ def flash_attention(q, k, v, scale=None):
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if _needs_graph(q, k, v):
         return FlashFn.apply(q, k, v, scale)
+    if library.use_ops():
+        return _heads_op(q, k, v, scale)
     return _heads_forward(q, k, v, scale, False)[0]
 
 
@@ -554,4 +630,6 @@ def flash_attention_qkvpacked(qkv, scale=None):
     scale = qkv.shape[-1] ** -0.5 if scale is None else scale
     if _needs_graph(qkv):
         return FlashQKVPackedFn.apply(qkv, scale)
+    if library.use_ops():
+        return _qkvpacked_op(qkv, scale)
     return _qkvpacked_forward(qkv, scale, False)[0]

@@ -31,16 +31,21 @@ dw outside any Pallas kernel too (XLA's conv VJP), so a library call is its
 counterpart: dw is not a hand-written kernel here.
 
 ``LAUNCHES`` counts kernel launches: ``fwd`` for the forward, ``dx`` for
-the input gradient.
+the input gradient. The forward is also the custom op
+``picklebot::folded_conv_fwd`` (``ops/library.py``), through which a
+traced call goes, so that an exported program keeps it.
 """
 
 from __future__ import annotations
 
 import ctypes
 from collections import namedtuple
+from typing import List
 
 import torch
 import torch.nn.functional as F
+
+from picklebot_tpu_torch.ops import library
 
 LAUNCHES = {"fwd": 0, "dx": 0}
 
@@ -158,6 +163,11 @@ def _conv(x5, w, pads, count: str):
     pads = _check(x5, w, pads)
     if x5.device.type == "cpu":
         return folded_conv_reference(x5, w, pads)
+    return _launch(x5, w, pads, count)
+
+
+def _launch(x5, w, pads, count: str):
+    """The kernel on checked CUDA tensors (``_check``'s pads)."""
     if x5.device.type != "cuda":
         raise ValueError(f"folded conv kernel: x is on {x5.device}; the "
                          "kernel runs on CUDA tensors only")
@@ -228,6 +238,24 @@ class FoldedConvS1Fn(torch.autograd.Function):
         return dx, dw, None
 
 
+@torch.library.custom_op(f"{library.NAMESPACE}::folded_conv_fwd",
+                         mutates_args=(), device_types="cuda")
+def _conv_op(x5: torch.Tensor, w: torch.Tensor,
+             pads: List[int]) -> torch.Tensor:
+    return _launch(x5, w, _check(x5, w, [(p, p) for p in pads]), "fwd")
+
+
+@_conv_op.register_kernel("cpu")
+def _conv_op_cpu(x5, w, pads):
+    return folded_conv_reference(x5, w, _check(x5, w,
+                                               [(p, p) for p in pads]))
+
+
+@_conv_op.register_fake
+def _conv_op_fake(x5, w, pads):
+    return x5.new_empty((*x5.shape[:-1], w.shape[-1]))
+
+
 def folded_conv_s1(x5, w, pads):
     """Stride-1 dense conv, (B, T, H, W, Ci) -> (B, T, H, W, Co), x5
     contiguous, w (Kt, Kh, Kw, Ci, Co) in x5's dtype (bf16 or f32), ``pads``
@@ -238,4 +266,6 @@ def folded_conv_s1(x5, w, pads):
     pads = tuple(tuple(p) for p in pads)
     if torch.is_grad_enabled() and (x5.requires_grad or w.requires_grad):
         return FoldedConvS1Fn.apply(x5, w, pads)
+    if library.use_ops():
+        return _conv_op(x5, w, [lo for lo, _ in pads])
     return _conv(x5, w, pads, "fwd")

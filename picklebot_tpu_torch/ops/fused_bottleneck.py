@@ -14,7 +14,10 @@ replace, their bound on the H100 and the E-chunk design):
 
 On a CPU tensor each wrapper computes its plain PyTorch version instead; on
 a CUDA tensor it launches its kernel or raises. ``LAUNCHES`` counts kernel
-launches per pass (a split's sum kernel is part of its pass).
+launches per pass (a split's sum kernel is part of its pass). The two
+passes are also the custom ops ``picklebot::fused_pool`` and
+``picklebot::fused_main`` (``ops/library.py``), through which a traced
+call (``torch.export``) goes, so that an exported program keeps them.
 
 Each launch follows a plan (``_pool_plan``, ``_main_plan``): the output
 tile, the 32-channel E-chunk, and where the grid would leave the card's
@@ -49,6 +52,7 @@ from collections import namedtuple
 
 import torch
 
+from picklebot_tpu_torch.ops import library
 from picklebot_tpu_torch.ops.activations import hardsigmoid, relu
 from picklebot_tpu_torch.ops.conv import depthwise_conv, pointwise_conv
 
@@ -403,11 +407,8 @@ def _no_graph(what, *ts):
             "differentiate fused_bottleneck (FusedBottleneckFn) instead")
 
 
-def fused_pool(x, w1, wd, kernel_size: int, stride: int):
-    """SE pass 1: f32 (B, E) per-sample sums of the depthwise output."""
-    _no_graph("pool", x, w1, wd)
-    if x.device.type == "cpu":
-        return pool_reference(x, w1, wd, kernel_size, stride)
+def _launch_pool(x, w1, wd, kernel_size: int, stride: int):
+    """The pool kernel on CUDA tensors (the op's CUDA implementation)."""
     _check(x, w1, wd, kernel_size)
     b, t, h, w, c = x.shape
     e = w1.shape[-1]
@@ -427,11 +428,8 @@ def fused_pool(x, w1, wd, kernel_size: int, stride: int):
     return pooled
 
 
-def fused_main(x, w1, wd, w2, scale, kernel_size: int, stride: int):
-    """Pass 2: expand -> depthwise -> x scale (f32 (B, E)) -> project."""
-    _no_graph("main", x, w1, wd, w2, scale)
-    if x.device.type == "cpu":
-        return main_reference(x, w1, wd, w2, scale, kernel_size, stride)
+def _launch_main(x, w1, wd, w2, scale, kernel_size: int, stride: int):
+    """The main kernel on CUDA tensors (the op's CUDA implementation)."""
     _check(x, w1, wd, kernel_size, w2=w2, scale=scale)
     b, t, h, w, c = x.shape
     e, co = w2.shape
@@ -451,9 +449,66 @@ def fused_main(x, w1, wd, w2, scale, kernel_size: int, stride: int):
     return out
 
 
+@torch.library.custom_op(f"{library.NAMESPACE}::fused_pool", mutates_args=(),
+                         device_types="cuda")
+def _pool_op(x: torch.Tensor, w1: torch.Tensor, wd: torch.Tensor,
+             kernel_size: int, stride: int) -> torch.Tensor:
+    return _launch_pool(x, w1, wd, kernel_size, stride)
+
+
+@_pool_op.register_kernel("cpu")
+def _pool_op_cpu(x, w1, wd, kernel_size, stride):
+    return pool_reference(x, w1, wd, kernel_size, stride)
+
+
+@_pool_op.register_fake
+def _pool_op_fake(x, w1, wd, kernel_size, stride):
+    return x.new_empty((x.shape[0], w1.shape[-1]), dtype=torch.float32)
+
+
+@torch.library.custom_op(f"{library.NAMESPACE}::fused_main", mutates_args=(),
+                         device_types="cuda")
+def _main_op(x: torch.Tensor, w1: torch.Tensor, wd: torch.Tensor,
+             w2: torch.Tensor, scale: torch.Tensor, kernel_size: int,
+             stride: int) -> torch.Tensor:
+    return _launch_main(x, w1, wd, w2, scale, kernel_size, stride)
+
+
+@_main_op.register_kernel("cpu")
+def _main_op_cpu(x, w1, wd, w2, scale, kernel_size, stride):
+    return main_reference(x, w1, wd, w2, scale, kernel_size, stride)
+
+
+@_main_op.register_fake
+def _main_op_fake(x, w1, wd, w2, scale, kernel_size, stride):
+    b, t, h, w, _ = x.shape
+    return x.new_empty((b, *out_shape(t, h, w, kernel_size, stride),
+                        w2.shape[-1]))
+
+
+def fused_pool(x, w1, wd, kernel_size: int, stride: int):
+    """SE pass 1: f32 (B, E) per-sample sums of the depthwise output."""
+    _no_graph("pool", x, w1, wd)
+    if library.use_ops():
+        return _pool_op(x, w1, wd, kernel_size, stride)
+    if x.device.type == "cpu":
+        return pool_reference(x, w1, wd, kernel_size, stride)
+    return _launch_pool(x, w1, wd, kernel_size, stride)
+
+
+def fused_main(x, w1, wd, w2, scale, kernel_size: int, stride: int):
+    """Pass 2: expand -> depthwise -> x scale (f32 (B, E)) -> project."""
+    _no_graph("main", x, w1, wd, w2, scale)
+    if library.use_ops():
+        return _main_op(x, w1, wd, w2, scale, kernel_size, stride)
+    if x.device.type == "cpu":
+        return main_reference(x, w1, wd, w2, scale, kernel_size, stride)
+    return _launch_main(x, w1, wd, w2, scale, kernel_size, stride)
+
+
 def _fused_forward(x, w1, wd, w2, se_w1, se_b1, se_w2, se_b2,
                    kernel_size, stride, use_se):
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not library.use_ops():
         return fused_bottleneck_reference(x, w1, wd, w2, se_w1, se_b1, se_w2,
                                           se_b2, kernel_size, stride, use_se)
     b, t, h, w, _ = x.shape

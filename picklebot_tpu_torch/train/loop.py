@@ -59,7 +59,6 @@ from picklebot_tpu_torch.utils.devices import resolve_device
 
 # config option -> (is it set?, ROADMAP.md item that ports it)
 UNPORTED = {
-    "input_size": (lambda c: c.input_size is not None, "queue A, item A16"),
     "autotune": (lambda c: c.autotune, "queue A, item A17"),
     "profile": (lambda c: c.profile, "queue A, item A17"),
     "data_parallel": (lambda c: (c.data_parallel or 1) > 1,
@@ -268,9 +267,9 @@ def train(config: Config, max_steps: Optional[int] = None,
         remat=int(config.remat),
         augment=Augment(flip=config.augment_flip, crop=config.augment_crop,
                         brightness=config.augment_brightness),
-        ema=ema, ema_decay=config.ema_decay)
+        ema=ema, ema_decay=config.ema_decay, input_size=config.input_size)
     eval_step = make_eval_step(model, config.criterion, policy, mean, std,
-                               device)
+                               device, input_size=config.input_size)
 
     train_ds, val_ds = _make_datasets(config)
     batch, accum = config.batch_size, config.grad_accum_steps

@@ -32,6 +32,7 @@ from picklebot_tpu_torch.core.policy import DtypePolicy
 from picklebot_tpu_torch.core.remat import apply_remat
 from picklebot_tpu_torch.data.augment import apply_augment, draw_augment
 from picklebot_tpu_torch.ops.linear import dropout_rng
+from picklebot_tpu_torch.ops.resize import resize_frames
 from picklebot_tpu_torch.train.losses import (LOSSES, LOSSES_PER_SAMPLE,
                                               prepare_labels, smoothed_bce,
                                               smoothed_cross_entropy)
@@ -39,13 +40,13 @@ from picklebot_tpu_torch.train.losses import (LOSSES, LOSSES_PER_SAMPLE,
 
 def preprocess(features: torch.Tensor, compute_dtype, mean=None, std=None,
                input_size=None) -> torch.Tensor:
-    """uint8 (..., C) clips or images -> compute dtype: /255, then the
-    optional per-channel mean/std."""
+    """uint8 (..., H, W, C) clips or images -> compute dtype: /255, then
+    with ``input_size`` the resize to (input_size, input_size)
+    (``ops/resize.py``), then the optional per-channel mean/std."""
+    x = features.to(compute_dtype) / 255.0
     if input_size:
-        raise NotImplementedError(
-            "config.input_size (the in-graph resize of ops/resize.py) is "
-            "not ported yet; see ROADMAP.md")
-    return standardize(features.to(compute_dtype) / 255.0, mean, std)
+        x = resize_frames(x, input_size)
+    return standardize(x, mean, std)
 
 
 def standardize(x: torch.Tensor, mean=None, std=None) -> torch.Tensor:
@@ -90,7 +91,8 @@ def make_train_step(model, optimizer, criterion: str, schedule,
                     policy: DtypePolicy = None, mean=None, std=None,
                     max_grad_norm=None, label_smoothing: float = 0.0,
                     seed: int = 0, device="cuda", remat: int = 0,
-                    augment=None, ema=None, ema_decay: float = 0.0):
+                    augment=None, ema=None, ema_decay: float = 0.0,
+                    input_size=None):
     """step(epoch, features, labels, position=0) -> metrics, with features
     (A, B, T, H, W, C) uint8 clips or (A, B, H, W, C) images and labels
     (A, B) (numpy or tensors) and
@@ -106,7 +108,8 @@ def make_train_step(model, optimizer, criterion: str, schedule,
     (``core/remat.apply_remat``). ``augment`` is an ``Augment``.
     ``ema`` ({name: f32 tensor}, from ``ema_init``) is updated in place
     after every optimizer step, ema = d * ema + (1 - d) * p in f32, with
-    d = ``ema_decay``."""
+    d = ``ema_decay``. ``input_size`` resizes each microbatch's frames
+    in ``preprocess``, before the augmentation."""
     policy = policy or DtypePolicy.bf16()
     device = torch.device(device)
     if remat:
@@ -136,9 +139,10 @@ def make_train_step(model, optimizer, criterion: str, schedule,
             for i in range(feats.shape[0]):
                 if aug is None:
                     x = preprocess(feats[i].to(device), policy.compute_dtype,
-                                   mean, std)
+                                   mean, std, input_size)
                 else:
-                    x = preprocess(feats[i].to(device), policy.compute_dtype)
+                    x = preprocess(feats[i].to(device), policy.compute_dtype,
+                                   input_size=input_size)
                     x = apply_augment(x, draw_augment(
                         aug, x.shape[0], seed, position + i), aug.crop)
                     x = standardize(x, mean, std)
@@ -172,7 +176,7 @@ def make_train_step(model, optimizer, criterion: str, schedule,
 
 
 def make_eval_step(model, criterion: str, policy: DtypePolicy = None,
-                   mean=None, std=None, device="cuda"):
+                   mean=None, std=None, device="cuda", input_size=None):
     """eval_step(features, labels, mask) -> {'loss' (masked mean),
     'loss_sum', 'correct', 'samples', 'confusion'}: eval mode (BatchNorm
     running statistics), ``mask`` (B,) 1.0 for real samples and 0.0 for
@@ -186,7 +190,7 @@ def make_eval_step(model, criterion: str, policy: DtypePolicy = None,
         model.eval()
         with torch.inference_mode(), policy.precision():
             x = preprocess(torch.as_tensor(features).to(device),
-                           policy.compute_dtype, mean, std)
+                           policy.compute_dtype, mean, std, input_size)
             logits = model(x)
             lbl = prepare_labels(criterion, torch.as_tensor(labels).to(device))
             m = torch.as_tensor(mask, dtype=torch.float32).to(device)

@@ -1,8 +1,8 @@
 """Port: the bench entry ``python -m picklebot_tpu_torch.bench`` on the
 CPU at tiny shapes (``--device cpu``): one parseable JSON line per run,
-``--remat`` on a train step, the options it does not port refused by
-their ROADMAP.md item, the matrix
-artifact written row by row, and no quiet fallback to the CPU."""
+``--remat`` on a train step, ``--baked`` on the exported program (and
+refused in training), the matrix artifact written row by row, and no
+quiet fallback to the CPU."""
 
 import json
 import os
@@ -43,7 +43,10 @@ def _one_line(capsys):
       "--size", "32"], "images/s"),
     (["--model", "MobileNetSmall3D", "--mode", "train", "--batch", "1",
       "--frames", "4", "--size", "32", "--remat", "1"], "clips/s"),
-], ids=["small3d_infer", "mobilevitv2_train", "small3d_train_remat1"])
+    (["--model", "MobileNetLarge3D", "--mode", "infer", "--batch", "2",
+      "--frames", "4", "--size", "32", "--baked"], "clips/s"),
+], ids=["small3d_infer", "mobilevitv2_train", "small3d_train_remat1",
+        "large3d_infer_baked"])
 def test_bench_prints_one_line(capsys, argv, unit):
     ret = bench.main(argv + ["--steps", "1", "--warmup", "1",
                              "--device", "cpu"])
@@ -55,14 +58,19 @@ def test_bench_prints_one_line(capsys, argv, unit):
     assert argv[1] in line["metric"] and "/sec/cpu (" in line["metric"]
     if unit == "images/s":
         assert "bs=2 32x32" in line["metric"]
+    elif "--baked" in argv:
+        assert "weights baked (exported program), bs=2 T=4 32x32" in \
+            line["metric"]
     else:
         assert "bs=1 T=4 32x32" in line["metric"]
 
 
 @pytest.mark.parametrize("flag,item", [(["--baked"], "A17")])
 def test_unported_options_are_refused(flag, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        bench.main(["--device", "cpu", "--mode", "infer"] + flag)
+    """Kept under its first name: ``--baked`` is ported (A17's export),
+    and is refused where the JAX bench refuses it, in training."""
+    with pytest.raises(ValueError, match=f"ROADMAP.*{item}.*inference-only"):
+        bench.main(["--device", "cpu", "--mode", "train"] + flag)
 
 
 def test_no_card_no_fallback():
@@ -97,7 +105,9 @@ def test_matrix_records_rows_and_appends(tmp_path, monkeypatch, capsys):
     assert measured["timing"] == "host"
     # a CPU run gives no device rate
     assert "tflops" not in measured and "mfu_pct" not in measured
-    assert baked["value"] is None and "A17" in baked["error"]
+    # the baked row times the exported program of the same forward
+    assert baked["value"] > 0 and "error" not in baked
+    assert baked["flops_per_step"] == measured["flops_per_step"]
     assert not os.path.exists(out + ".tmp")
     # append: the two recorded rows are skipped, a new one is measured
     new = TINY[:2] + ("train",) + TINY[3:]
