@@ -9,10 +9,11 @@
     python3 chip_smoke.py --only v2 bench      # MobileViTV2; the bench entry
     python3 chip_smoke.py --only trainx        # the trainer extras
     python3 chip_smoke.py --only surface       # resize, export, HTTP
+    python3 chip_smoke.py --only tooling       # native I/O, the CLI's tools
     python3 chip_smoke.py --only kernels serve # or any of kernels, fused,
                                                # conv, flash, serve, train,
                                                # trainx, timing, stream, v2,
-                                               # bench, surface
+                                               # bench, surface, tooling
     python3 chip_smoke.py --ab-forward DIR     # Large3D's eager forward of
                                                # the tree at DIR and of this
                                                # one, in turns
@@ -161,8 +162,28 @@ kernels summary):
               in process, /healthz counting them and a 413 and a 400
               probe; requests/s and p50/p99 latency. At most 60 s of its
               own clock
- 12. summary  {"kernels": [...]}, the card line, and last
-              {"ok": true, "device": ...}
+ 12. tooling  native I/O and the rest of the tooling: the C++ collate
+              of 8 ragged 20-40-frame 224x224 clips bit-equal to the numpy
+              path, its counter moved, both host times; the ffmpeg decode
+              backend where its library builds (else the build error's
+              first line): the committed mp4 fixture byte-exact against
+              its stored OpenCV frames, then served through serve --csv
+              with data_backend ffmpeg on MobileNetLarge3D bf16 (exactly
+              8 pool and 15 main launches); the CLI on MobileNetLarge3D
+              (the train phase's cuts, 32 clips, 2 steps) with autotune,
+              --profile and --torch-profile-dir: the trace names
+              pool_bf16_kernel / main_bf16_kernel exactly as often as
+              LAUNCHES counted over the run, train_stats.prof written, one
+              cache entry with both candidates, every batch through the
+              native collate, a second autotune_config measuring nothing,
+              memory_stats beside the run's peak; the autotuner's readings
+              (MobileNetLarge3D train and MoViNet-A2 infer at bs 8; the
+              kernels of a MoViNetA2Stream chunk-1 step with
+              cudnn.benchmark off and on); the summary's totals of
+              MobileNetLarge3D and MobileViT-s and their GFLOPs per clip.
+              At most 120 s of its own clock
+ 13. summary  the collates of the whole run (none on numpy), {"kernels":
+              [...]}, the card line, and last {"ok": true, "device": ...}
 Per-shape numbers also go to chiprun_out/chip_smoke.json. Without CUDA it
 exits with code 2 and prints no result. Imports nothing of JAX.
 """
@@ -368,9 +389,25 @@ HTTP_CLIENTS, HTTP_POSTS = 8, 32
 HTTP_WINDOWS = (10.0, 0.0)
 HTTP_MAX_BODY = 8 << 20
 SURFACE_MAX_S = 60.0
+# tooling: the native collate at the loader's shapes (8 ragged uint8
+# clips of 20-40 frames, 224x224, windowed to max_frames); the committed
+# mp4 fixture and its OpenCV-decoded frames; the CLI on MobileNetLarge3D
+# cut as the train phase's (32 clips: 4 train, 4 eval batches) with the
+# autotuner, cProfile and the torch.profiler trace on; the autotuner's
+# readings; the summary's totals (PERF.md section 4); the phase's limit,
+# twice the 60 s it is meant to take: on an NVIDIA H100 80GB HBM3 at
+# 700 W it read 53.4-77.9 s, most of it the traced CLI run (419k kernel
+# events, a 729 MB trace), whose host's speed moved 1.5x between runs
+TOOLING_CLIPS, TOOLING_T, TOOLING_MAX_FRAMES = 8, (20, 40), 32
+FIXTURE = os.path.join(ROOT, "tests", "data", "clip_10x32x48.mp4")
+FIXTURE_RGB = os.path.join(ROOT, "tests", "data", "clip_10x32x48_rgb.npy")
+TOOLING_CUTS = dict(TRAIN_CUTS, synthetic_len=32, autotune=True)
+TOOLING_STEPS = 2
+SUMMARY_TOTALS = {"MobileNetLarge3D": 4_205_675, "MobileViT-s": 8_453_136}
+TOOLING_MAX_S = 120.0
 # what --only can pick; with no --only every phase runs
 PHASES = ("kernels", "fused", "conv", "flash", "serve", "train", "trainx",
-          "timing", "stream", "v2", "bench", "surface")
+          "timing", "stream", "v2", "bench", "surface", "tooling")
 
 
 def emit(obj):
@@ -2716,6 +2753,360 @@ def phase_surface(gpu_line, feats, x, counters):
 
 
 # --------------------------------------------------------------------------
+# tooling: native I/O, the CLI's profilers and autotuner, the summary
+# --------------------------------------------------------------------------
+
+def tooling_collate():
+    """The native collate of TOOLING_CLIPS ragged clips against the numpy
+    path (the same bytes), each timed by the host clock (median of 5);
+    the numpy reference calls are taken off the counter again."""
+    from picklebot_tpu_torch.data import native
+    from picklebot_tpu_torch.data.dataset import pad_collate
+    rng = np.random.RandomState(14)
+    lengths = rng.randint(TOOLING_T[0], TOOLING_T[1] + 1, TOOLING_CLIPS)
+    clips = [rng.randint(0, 256, (t, 224, 224, 3), np.uint8)
+             for t in lengths]
+    labels = list(range(TOOLING_CLIPS))
+    t0 = time.perf_counter()
+    if native.get_lib() is None:
+        raise AssertionError("tooling: the native collate did not build: "
+                             f"{native.build_error('collate')}")
+    build_s = time.perf_counter() - t0
+
+    def timed(**kw):
+        times, batch = [], None
+        for _ in range(5):
+            t0 = time.perf_counter()
+            batch, _ = pad_collate(clips, labels, 8, TOOLING_MAX_FRAMES,
+                                   **kw)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return batch, sorted(times)[2]
+    before = dict(native.COLLATES)
+    got, native_ms = timed()
+    moved = native.COLLATES["native"] - before["native"]
+    want, numpy_ms = timed(native=False)
+    native.COLLATES["numpy"] = before["numpy"]
+    if moved != 5 or native.COLLATES["numpy"] != before["numpy"]:
+        raise AssertionError(f"tooling: the native collate counted {moved} "
+                             "of 5 calls")
+    if got.shape != (TOOLING_CLIPS, TOOLING_MAX_FRAMES, 224, 224, 3) or \
+            got.tobytes() != want.tobytes():
+        raise AssertionError("tooling: the native collate's batch is not "
+                             "the numpy path's")
+    out = {"clip_frames": lengths.tolist(), "batch_shape": list(got.shape),
+           "bit_equal": True, "native_collates": moved,
+           "build_or_load_s": build_s, "native_ms": native_ms,
+           "numpy_ms": numpy_ms, "timing": "host clock, median of 5"}
+    emit({"phase": "tooling", "part": "collate", **out})
+    return out
+
+
+def tooling_decode(counters):
+    """The ffmpeg backend where its library builds: the fixture decoded
+    byte-exact against its stored frames, then served through serve's
+    --csv with data_backend ffmpeg on MobileNetLarge3D bf16 (exact
+    launches). Where it does not build, the build error's first line."""
+    from picklebot_tpu_torch import serve
+    from picklebot_tpu_torch.data import native
+    out = {"ffmpeg_available": native.ffmpeg_available()}
+    if not out["ffmpeg_available"]:
+        lines = (native.build_error("videodec") or "").strip().splitlines()
+        # the compiler's first error, else the message's first line
+        out["build_error"] = next((l for l in lines if "error" in l),
+                                  lines[0] if lines else "")
+        print(f"ffmpeg decode backend unavailable: {out['build_error']}",
+              flush=True)
+        emit({"phase": "tooling", "part": "decode", **out})
+        return out
+    want = np.load(FIXTURE_RGB)
+    t0 = time.perf_counter()
+    got = native.decode_video_ffmpeg(FIXTURE)
+    out["decode_ms"] = (time.perf_counter() - t0) * 1e3
+    if got.shape != want.shape or got.tobytes() != want.tobytes():
+        raise AssertionError(f"tooling: ffmpeg decode of the fixture "
+                             f"{got.shape} is not its stored frames "
+                             f"{want.shape}")
+    out["fixture"] = {"shape": list(got.shape), "byte_exact": True}
+    with tempfile.TemporaryDirectory() as tmp:
+        csv = os.path.join(tmp, "ann.csv")
+        with open(csv, "w") as f:
+            f.write(f"filename,zone\n{os.path.basename(FIXTURE)},5\n")
+        cfg_path = os.path.join(tmp, "cfg.json")
+        with open(cfg_path, "w") as f:
+            json.dump(serve_config(
+                "MobileNetLarge3D", data_backend="ffmpeg",
+                video_paths=os.path.dirname(FIXTURE), input_size=224), f)
+        pth = os.path.join(tmp, "weights.pth")
+        import torch
+        torch.save(large3d().state_dict(), pth)
+        zero_counters(counters)
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            rc = serve.main([cfg_path, "--checkpoint", pth, "--csv", csv,
+                             "--batch", "8"])
+        torch.cuda.synchronize()
+        launches = read_counters(counters)
+    lines = [json.loads(l) for l in text.getvalue().splitlines()
+             if l.startswith("{")]
+    want_launches = launches_wanted(fused={"pool": 8, "main": 15})
+    if rc != 0 or not lines or lines[-1].get("evaluated") != 1 or \
+            launches != want_launches:
+        raise AssertionError(f"tooling: serve --csv through ffmpeg: rc {rc}, "
+                             f"lines {lines}, launches {launches}")
+    out["serve"] = {"records": lines, "launches": launches}
+    emit({"phase": "tooling", "part": "decode", **out})
+    return out
+
+
+def trace_kernel_counts(trace_dir, stems):
+    """Kernel events of the torch.profiler trace(s) in ``trace_dir`` whose
+    name holds each stem, counted over the whole trace (the profiler's
+    device events do not always fall inside their CPU ranges on the
+    card's machine): ({stem: count}, events, MB, seconds to read). The
+    trace runs to hundreds of MB, so it is searched for each event's
+    ``"cat": "kernel", "name": ...`` pair rather than parsed; a count
+    that misses the launches fails the phase."""
+    import glob
+    import re
+    pair = re.compile(r'"kernel",\s*"name":\s*"([^"]*)"')
+    t0 = time.perf_counter()
+    files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    if not files:
+        raise AssertionError(f"tooling: no trace written in {trace_dir}")
+    counts, events, size = dict.fromkeys(stems, 0), 0, 0
+    for path in files:
+        size += os.path.getsize(path)
+        with open(path) as f:
+            text = f.read()
+        for m in pair.finditer(text):
+            events += 1
+            for stem in stems:
+                counts[stem] += stem in m.group(1)
+    return counts, events, size / 2 ** 20, time.perf_counter() - t0
+
+
+def tooling_cli(counters):
+    """The CLI in process on configs/mobilenet_large_50k.json cut to
+    TOOLING_CUTS, ``--steps 2 --profile --torch-profile-dir`` with
+    ``autotune`` on and its cache in a temporary file, in a temporary
+    working directory: the trace names the fused pool and main kernels
+    exactly as often as LAUNCHES counted over the run (the autotuner's
+    measurements included), train_stats.prof is written, the cache holds
+    one entry with both candidates, every batch went through the native
+    collate, and a second autotune_config measures nothing."""
+    import math
+    import torch
+    from picklebot_tpu_torch import cli
+    from picklebot_tpu_torch.data import native
+    from picklebot_tpu_torch.utils import autotune, profiling
+    from picklebot_tpu_torch.utils.config import load_config
+
+    t_start = time.perf_counter()
+    prev_cache = os.environ.get("PICKLEBOT_AUTOTUNE_CACHE")
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        cache = os.path.join(tmp, "autotune.json")
+        os.environ["PICKLEBOT_AUTOTUNE_CACHE"] = cache
+        try:
+            with open(os.path.join(ROOT, "configs",
+                                   "mobilenet_large_50k.json")) as f:
+                cfg = json.load(f)
+            reduced = {k: {"from": cfg.get(k), "to": v}
+                       for k, v in TOOLING_CUTS.items() if cfg.get(k) != v}
+            cfg.update(TOOLING_CUTS, checkpoint_dir=os.path.join(tmp, "ck"),
+                       log_dir=os.path.join(tmp, "runs"))
+            path = os.path.join(tmp, "cfg.json")
+            with open(path, "w") as f:
+                json.dump(cfg, f)
+            trace_dir = os.path.join(tmp, "trace")
+            zero_counters(counters)
+            collates = dict(native.COLLATES)
+            torch.cuda.reset_peak_memory_stats()
+            text = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(text):
+                summary = cli.main([path, "--steps", str(TOOLING_STEPS),
+                                    "--profile", "--torch-profile-dir",
+                                    trace_dir])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counters(counters)
+            peak = torch.cuda.max_memory_allocated()
+            memory = profiling.memory_stats()
+            stems = ("pool_bf16_kernel", "main_bf16_kernel")
+            in_trace, events, trace_mb, read_s = trace_kernel_counts(
+                trace_dir, stems)
+            with open(cache) as f:
+                entries = json.load(f)
+            n_micro = TOOLING_STEPS * (TOOLING_CUTS["effective_batch_size"]
+                                       // TOOLING_CUTS["batch_size"])
+            n_eval = -(-TOOLING_CUTS["synthetic_len"]
+                       // TOOLING_CUTS["batch_size"])
+            batches = {k: native.COLLATES[k] - collates[k]
+                       for k in collates}
+            prof_written = os.path.exists(os.path.join(tmp,
+                                                       "train_stats.prof"))
+            # the same config again: a cache hit, no measurement
+            config = load_config(path)
+            before = open(cache).read()
+            zero_counters(counters)
+            _, again = autotune.autotune_config(config, "train",
+                                                device="cuda")
+            torch.cuda.synchronize()
+            second = read_counters(counters)
+            cache_unchanged = open(cache).read() == before
+        finally:
+            if prev_cache is None:
+                os.environ.pop("PICKLEBOT_AUTOTUNE_CACHE", None)
+            else:
+                os.environ["PICKLEBOT_AUTOTUNE_CACHE"] = prev_cache
+    key, entry = next(iter(entries.items())) if len(entries) == 1 \
+        else (None, None)
+    fused = launches["fused"]
+    problems = []
+    if fused["pool"] != in_trace["pool_bf16_kernel"] or \
+            fused["main"] != in_trace["main_bf16_kernel"]:
+        problems.append(f"trace {in_trace} against launches {fused}")
+    if fused["pool"] < 8 * (n_micro + n_eval) or \
+            fused["main"] < 15 * (n_micro + n_eval) or \
+            any(any(c.values()) for n, c in launches.items()
+                if n != "fused"):
+        problems.append(f"launches {launches}")
+    if not prof_written:
+        problems.append("no train_stats.prof")
+    if entry is None or set(entry["measured"]) != {"benchmark_off",
+                                                   "benchmark_on"}:
+        problems.append(f"autotune cache {entries}")
+    if batches != {"native": n_micro + n_eval, "numpy": 0}:
+        problems.append(f"collates {batches}, want {n_micro + n_eval} "
+                        "native")
+    if any(any(c.values()) for c in second.values()) or \
+            not cache_unchanged or entry is None or \
+            again != entry["benchmark"]:
+        problems.append(f"second autotune_config: launches {second}, "
+                        f"cache unchanged {cache_unchanged}")
+    losses = summary["train_losses"]
+    if len(losses) != n_micro or not all(map(math.isfinite, losses)):
+        problems.append(f"losses {losses}")
+    if problems:
+        raise AssertionError("tooling: the CLI run: " + "; ".join(problems))
+    out = {"config": "configs/mobilenet_large_50k.json", "width": "full",
+           "reduced": reduced, "steps": TOOLING_STEPS,
+           "launches": launches, "trace_counts": in_trace,
+           "trace_kernel_events": events, "trace_mb": trace_mb,
+           "trace_read_s": read_s, "train_stats_prof": True,
+           "autotune_key": key, "autotune_entry": entry,
+           "collates": batches, "cli_wall_s": wall,
+           "peak_memory_bytes": peak, "memory_stats": memory,
+           "train_losses": losses,
+           "seconds": time.perf_counter() - t_start}
+    emit({"phase": "tooling", "part": "cli", **out})
+    return out
+
+
+def tooling_autotune_readings():
+    """Readings, not gates: the autotuner's per-candidate times for
+    MobileNetLarge3D train bs 8 and MoViNet-A2 infer bs 8 (32x224x224,
+    bf16, a fresh cache), and the device kernels of one MoViNetA2Stream
+    chunk-1 step traced with cudnn.benchmark off and on."""
+    import torch
+    from picklebot_tpu_torch.core.policy import DtypePolicy
+    from picklebot_tpu_torch.serve import stream_clip
+    from picklebot_tpu_torch.utils import autotune
+    from picklebot_tpu_torch.utils.config import Config
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = os.path.join(tmp, "autotune.json")
+        for label, name, mode in (("MobileNetLarge3D", "MobileNetLarge3D",
+                                   "train"),
+                                  ("MoViNet-A2", "MoViNetA2", "infer")):
+            cfg = Config(model_name=name, num_classes=13, batch_size=8,
+                         effective_batch_size=8,
+                         synthetic_shape=(32, 224, 224)).validate()
+            t0 = time.perf_counter()
+            winner = autotune.autotune(cfg, mode, device="cuda",
+                                       cache_path=cache)
+            with open(cache) as f:
+                entry = json.load(f)[autotune._cache_key(
+                    cfg, mode, autotune._tune_shape(cfg, mode), "cuda")]
+            out[f"{label}_{mode}"] = {
+                "benchmark": winner, "samples_per_s": entry["measured"],
+                "ms_per_step": entry["ms_per_step"],
+                "seconds": time.perf_counter() - t0}
+    from torch.profiler import ProfilerActivity, profile
+    model = stream_model("MoViNetA2Stream").cuda().eval()
+    frames = np.random.RandomState(3).randint(0, 256, (4, 224, 224, 3),
+                                              np.uint8)
+    for benchmark in (False, True):
+        # one chunk-1 step after one warm-up step (cuDNN's search runs
+        # there with the flag on), its device kernels only
+        with autotune.cudnn_benchmark(benchmark):
+            gen = stream_clip(model, frames, 1, DtypePolicy.bf16(), "cuda",
+                              "CE", 13)
+            next(gen)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                next(gen)
+                torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        by_name = {}
+        for e in kernels:
+            by_name[e.name] = by_name.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3
+        out[f"stream_chunk1_{autotune.candidate_name(benchmark)}"] = {
+            "device_busy_ms": union_us([(e.time_range.start,
+                                         e.time_range.end)
+                                        for e in kernels]) / 1e3,
+            "kernel_launches": len(kernels),
+            "top_kernels_ms": [[n[:120], t] for n, t in sorted(
+                by_name.items(), key=lambda kv: -kv[1])[:3]]}
+    del model
+    torch.cuda.empty_cache()
+    emit({"phase": "tooling", "part": "autotune_readings", **out})
+    return out
+
+
+def tooling_summary():
+    """utils/summary.py on MobileNetLarge3D and MobileViT-s: the totals
+    against SUMMARY_TOTALS, the forward's GFLOPs per 32x224x224 clip."""
+    from picklebot_tpu_torch.utils import summary
+    out = {}
+    for label, make, name in (("MobileNetLarge3D", large3d,
+                               "MobileNetLarge3D"),
+                              ("MobileViT-s", mobilevit_s, "MobileViT")):
+        model = make()
+        rows = summary.param_table(model, name)
+        if rows[-1][1] != SUMMARY_TOTALS[label]:
+            raise AssertionError(f"tooling: summary of {label} totals "
+                                 f"{rows[-1][1]}, not "
+                                 f"{SUMMARY_TOTALS[label]}")
+        flops = summary.cost_summary(model, (1, 32, 224, 224, 3))["flops"]
+        out[label] = {"rows": rows, "total": rows[-1][1],
+                      "gflops_per_clip": flops / 1e9}
+    emit({"phase": "tooling", "part": "summary",
+          **{k: {"total": v["total"], "gflops_per_clip": v[
+              "gflops_per_clip"]} for k, v in out.items()}})
+    return out
+
+
+def phase_tooling(gpu_line, counters):
+    """Native I/O and the tooling: the collate, the decode backend, the
+    CLI with every tool on, the autotuner's readings, the summary.
+    Fails past TOOLING_MAX_S of its own clock."""
+    t_start = time.perf_counter()
+    out = {"card": gpu_line, "collate": tooling_collate(),
+           "decode": tooling_decode(counters), "cli": tooling_cli(counters),
+           "autotune": tooling_autotune_readings(),
+           "summary": tooling_summary()}
+    out["seconds"] = time.perf_counter() - t_start
+    emit({"phase": "tooling", "card": gpu_line, "seconds": out["seconds"]})
+    if out["seconds"] > TOOLING_MAX_S:
+        raise AssertionError(f"tooling phase took {out['seconds']:.1f} s "
+                             f"(at most {TOOLING_MAX_S})")
+    return out
+
+
+# --------------------------------------------------------------------------
 # --ab-forward: Large3D's eager serve forward, this tree against another
 # --------------------------------------------------------------------------
 
@@ -3612,8 +4003,9 @@ def parse_args(argv):
         "MobileNetLarge2D's CLI run), v2 (MobileViTV2: logits and a train "
         "step against the CPU, timings, traces), bench (the port's bench "
         "entry on three runs), surface (the in-graph resize, the exported "
-        "program, the HTTP server). A partial run prints no kernels "
-        "summary")
+        "program, the HTTP server), tooling (the native collate and "
+        "decoder, the CLI with the profilers and the autotuner, the "
+        "summary). A partial run prints no kernels summary")
     ap.add_argument(
         "--ab-forward", metavar="DIR", default=None,
         help="instead of the phases: MobileNetLarge3D's eager serve "
@@ -3790,6 +4182,10 @@ def main(argv=None):
     if selected("surface"):
         surface = phase_surface(gpu_line, feats, x, counters)
         seconds["surface"] = surface["seconds"]
+    tooling = None
+    if selected("tooling"):
+        tooling = phase_tooling(gpu_line, counters)
+        seconds["tooling"] = tooling["seconds"]
     seconds["total"] = time.perf_counter() - T_START
     emit({"phase": "seconds", **seconds})
 
@@ -3801,7 +4197,7 @@ def main(argv=None):
               "serve": {"MobileNetLarge3D": large, "MobileViT-s": vit,
                         "MobileNetSmall3D": small, "MoViNetA2": movinet},
               "train": train, "trainx": trainx, "stream": stream, "v2": v2,
-              "bench": bench_runs, "surface": surface}
+              "bench": bench_runs, "surface": surface, "tooling": tooling}
     if only:
         skipped = [p for p in PHASES if not selected(p)
                    and not (p in ("fused", "conv", "flash")
@@ -3841,6 +4237,10 @@ def main(argv=None):
                     for k, v in surface.items()
                     if isinstance(v, dict) and "launches" in v}
     runs.update({k: v["fused"] for k, v in surface_runs.items()})
+    runs["tooling_cli"] = tooling["cli"]["launches"]["fused"]
+    if tooling["decode"]["ffmpeg_available"]:
+        runs["tooling_serve_ffmpeg"] = tooling["decode"]["serve"][
+            "launches"]["fused"]
     flash_runs = {"serve_mobilevit": vit["launches"]["flash"],
                   **{f"forward_mobilevit_{b}": vit[b]["launches"]["flash"]
                      for b in ("pallas", "pallas_packed")},
@@ -3892,9 +4292,16 @@ def main(argv=None):
         conv_entry("dx", conv, {k: r for k, r in conv_runs.items()
                                 if k.startswith(("train_", "trainx_"))}),
     ]
+    # the host's collate over the whole script: every batch the C++ core's
+    from picklebot_tpu_torch.data.native import COLLATES
+    collates = dict(COLLATES)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"),
               "w") as f:
-        json.dump(dict(record, kernels=kernels), f, indent=1)
+        json.dump(dict(record, kernels=kernels, collates=collates), f,
+                  indent=1)
+    emit({"phase": "summary", "collates": collates})
+    if collates["numpy"] or not collates["native"]:
+        raise AssertionError(f"a batch left the native collate: {collates}")
     print(gpu_line, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,5 @@
 """Weights in and out of the port: reference ``.pth`` files and the JAX
-package's variables.
+package's variables, and the checkpoint-conversion CLI.
 
 ``load_pth`` loads a state dict with the reference torch keys (a reference
 checkpoint, or one written by the JAX package's ``save_pth``) with
@@ -10,11 +10,30 @@ of ``picklebot_tpu/train/key_maps.py`` and ``checkpoint.py`` (conv
 (k..., I, O) -> (O, I, k...), 2-D linear and LSTM (I, O) -> (O, I), a 1x1
 conv kept as a matrix -> (O, I, 1, 1, 1), or (O, I, 1, 1) in the 2-D
 models, BN statistics as state only).
+
+The CLI, the counterpart of ``python -m picklebot_tpu.convert`` on the
+port's formats; the direction follows the output's suffix, and no device
+is touched::
+
+  # a .pth -> the port's snapshot file (step 0: fresh optimizer state)
+  python -m picklebot_tpu_torch.convert weights.pth --config cfg.json \
+      --out ck/
+
+  # a port snapshot (or another .pth) -> a .pth with the reference keys
+  python -m picklebot_tpu_torch.convert ck/step_0 --config cfg.json \
+      --out weights.pth [--like reference.pth] [--ema]
+
+``--like`` writes the keys of an existing ``.pth`` in its order (its
+``_orig_mod.`` prefix dropped, as the JAX CLI drops it); ``--ema`` takes a
+snapshot's EMA weights. It prints the JAX CLI's one JSON line.
 """
 
 from __future__ import annotations
 
+import argparse
+import json
 import re
+import sys
 from typing import Dict
 
 import numpy as np
@@ -155,6 +174,11 @@ INVERSE_RULES = {"MobileNetLarge3D": _MOBILENET3D_INVERSE,
                  "MobileNetSmall3D": _MOBILENET3D_INVERSE,
                  "MobileViT": _MOBILEVIT_INVERSE,
                  "MoViNetA2": _MOVINET_INVERSE,
+                 # the offline model's paths, each block's causal conv
+                 # nested one level deeper, all under "net"
+                 "MoViNetA2Stream": _MOVINET_INVERSE + (
+                     (r"^(block\d+\.\d+)\.conv\.", r"\1.conv.conv."),
+                     (r"^", "net.")),
                  "MobileNetLarge2D": _MOBILENET2D_INVERSE,
                  "MobileNetSmall2D": _MOBILENET2D_INVERSE,
                  "MobileViTV2": (
@@ -241,3 +265,107 @@ def load_pth(path: str, model: torch.nn.Module) -> torch.nn.Module:
     """Strict load of a reference-keyed ``.pth`` into ``model``."""
     model.load_state_dict(read_pth(path), strict=True)
     return model
+
+
+def load_weights(path: str, model: torch.nn.Module,
+                 ema: bool = False) -> torch.nn.Module:
+    """Load weights into ``model`` from a ``.pth`` (reference keys) or a
+    snapshot of the port's trainer (its ``model`` state dict; with
+    ``ema`` its EMA weights over the parameters, as the trainer's eval
+    scores them), for serve, export and the CLI below. Raises SystemExit
+    for ``ema`` without EMA weights, as the JAX server does, and
+    NotImplementedError for any other path (an Orbax snapshot of the JAX
+    package)."""
+    from picklebot_tpu_torch.train import checkpoint as ckpt
+
+    if path.endswith(".pth"):
+        if ema:
+            # a .pth holds one weight set: --ema would hand back raw ones
+            raise SystemExit(
+                "--ema requires a training snapshot (the EMA weights are "
+                "part of the training state); a .pth file has no EMA "
+                "stream")
+        return load_pth(path, model)
+    if not ckpt.is_snapshot(path):
+        raise NotImplementedError(
+            f"checkpoint {path!r}: the port reads a .pth or its own "
+            "snapshot files; Orbax snapshots are the JAX package's (export "
+            "one's weights as a .pth with python -m picklebot_tpu.convert)")
+    payload = ckpt.load_checkpoint(path)
+    model.load_state_dict(payload["model"], strict=True)
+    if ema:
+        if payload.get("ema") is None:
+            raise SystemExit(
+                "--ema: this snapshot has no EMA weights (train with "
+                "config ema_decay > 0)")
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.copy_(payload["ema"][name])
+    return model
+
+
+def like_state_dict(state: Dict[str, torch.Tensor],
+                    like_path: str) -> Dict[str, torch.Tensor]:
+    """``state`` under the keys of the ``.pth`` at ``like_path``, in its
+    order. The key sets must agree but for ``num_batches_tracked``
+    (written where the like file has it): a KeyError names the first
+    that does not."""
+    like = list(read_pth(like_path))
+    bookkeeping = ".num_batches_tracked"
+    missing = [k for k in like if k not in state]
+    extra = [k for k in state if k not in set(like)
+             and not k.endswith(bookkeeping)]
+    if missing or extra:
+        raise KeyError(f"--like {like_path}: its keys are not this model's "
+                       f"(not in the model: {missing[:3]}; not in the file: "
+                       f"{extra[:3]})")
+    return {k: state[k] for k in like}
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(
+        description="Convert checkpoints between a torch .pth and the "
+                    "port's snapshot file")
+    p.add_argument("src", help="source: a .pth or a snapshot file of the "
+                   "port's trainer")
+    p.add_argument("--config", required=True)
+    p.add_argument("--out", required=True,
+                   help=".pth -> a state dict; anything else -> a snapshot "
+                        "directory (step_0 in it)")
+    p.add_argument("--like", default=None,
+                   help="a .pth whose key names the export should mirror")
+    p.add_argument("--ema", action="store_true",
+                   help="convert the EMA weights of a snapshot trained "
+                        "with ema_decay > 0 (same contract as serve --ema)")
+    args = p.parse_args(argv)
+
+    from picklebot_tpu_torch.models.registry import initialize_model
+    from picklebot_tpu_torch.train import checkpoint as ckpt
+    from picklebot_tpu_torch.train.optim import OPTIMIZERS
+    from picklebot_tpu_torch.utils.config import load_config
+
+    config = load_config(args.config)
+    model = load_weights(args.src, initialize_model(config), args.ema)
+    if args.out.endswith(".pth"):
+        state = {k: v.detach().clone() for k, v in
+                 model.state_dict().items()}
+        if args.like:
+            state = like_state_dict(state, args.like)
+        torch.save(state, args.out)
+        out_path, kind = args.out, "torch"
+    else:
+        # step 0 of a fresh run: the optimizer's initial state, no EMA,
+        # the early-stop baselines at inf (train/loop.py's start)
+        optimizer = OPTIMIZERS[config.optimizer](
+            model.parameters(), weight_decay=config.weight_decay)
+        payload = ckpt.snapshot(model, optimizer, None, 0, [0, 0],
+                                [float("inf"), float("inf"), 0])
+        out_path = ckpt.SnapshotWriter().save(args.out, 0, payload)
+        kind = "snapshot"
+    print(json.dumps({"converted": args.src, "to": out_path,
+                      "format": kind, "model": config.model_name}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

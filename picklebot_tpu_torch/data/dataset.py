@@ -1,11 +1,13 @@
 """Clip dataset: CSV annotations + video decode, host-side numpy.
 
-The port's own copy of ``picklebot_tpu/data/dataset.py`` for the
-``synthetic``, ``synthetic_learnable``, ``npy`` and ``opencv`` backends
-(``cv2`` is imported only when a clip is decoded). Synthetic clips are
-byte-identical to the JAX package's: ``np.random.RandomState(index)`` and
-T - index % 4 frames. ``pad_collate`` zero-pads T to a bucket in numpy; the
-native C++ collate and the ffmpeg backend are queued in ROADMAP.md.
+The port's own copy of ``picklebot_tpu/data/dataset.py``, all five of its
+backends: ``synthetic``, ``synthetic_learnable``, ``npy``, ``opencv``
+(``cv2`` is imported only when a clip is decoded) and ``ffmpeg`` (the C++
+libav core of ``data/native.py``, built at its first decode). Synthetic
+clips are byte-identical to the JAX package's: ``np.random.RandomState(
+index)`` and T - index % 4 frames. ``pad_collate`` zero-pads T to a
+bucket, with the native C++ collate where it builds and numpy otherwise
+(``native.COLLATES`` counts each path).
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import zipfile
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from picklebot_tpu_torch.data import native as native_core
 
 
 def read_annotations(csv_path: str) -> Tuple[List[str], np.ndarray]:
@@ -56,6 +60,15 @@ def decode_opencv(path: str, sample_fps: float = 0.0) -> np.ndarray:
     return np.stack(frames)
 
 
+def decode_ffmpeg(path: str, sample_fps: float = 0.0) -> np.ndarray:
+    """Video file -> (T, H, W, 3) uint8 RGB through the libavcodec core
+    (``data/native_src/videodec.cpp``), byte-equal to ``decode_opencv``
+    on the same files; the same ``sample_fps`` stride, computed in the
+    core. Raises RuntimeError where the core cannot be built."""
+    from picklebot_tpu_torch.data.native import decode_video_ffmpeg
+    return decode_video_ffmpeg(path, sample_fps=sample_fps)
+
+
 def decode_npy(path: str) -> np.ndarray:
     arr = np.load(path)
     if hasattr(arr, "files"):  # npz
@@ -66,7 +79,8 @@ def decode_npy(path: str) -> np.ndarray:
 
 
 class ClipDataset:
-    BACKENDS = ("opencv", "npy", "synthetic", "synthetic_learnable")
+    BACKENDS = ("opencv", "ffmpeg", "npy", "synthetic",
+                "synthetic_learnable")
 
     def __init__(self, annotations_file: str, video_dir: str,
                  backend: str = "opencv",
@@ -75,9 +89,8 @@ class ClipDataset:
                  sample_fps: float = 0.0, synthetic_classes: int = 13,
                  skip_bad_clips: bool = False):
         if backend not in self.BACKENDS:
-            raise NotImplementedError(
-                f"data backend {backend!r} is not ported yet (ported: "
-                f"{', '.join(self.BACKENDS)}); see ROADMAP.md")
+            raise ValueError(f"unknown data backend {backend!r} (valid: "
+                             f"{', '.join(self.BACKENDS)})")
         self.video_dir = video_dir
         self.backend = backend
         self.sample_fps = float(sample_fps)
@@ -135,6 +148,8 @@ class ClipDataset:
         path = os.path.join(self.video_dir, self.filenames[idx])
         if self.backend == "opencv":
             return decode_opencv(path, self.sample_fps), label
+        if self.backend == "ffmpeg":
+            return decode_ffmpeg(path, self.sample_fps), label
         return decode_npy(path), label
 
 
@@ -144,10 +159,13 @@ def bucket_frames(t: int, t_bucket: int, max_frames: int) -> int:
 
 
 def pad_collate(clips: Sequence[np.ndarray], labels: Sequence[int],
-                t_bucket: int = 8, max_frames: int = 256
-                ) -> Tuple[np.ndarray, np.ndarray]:
+                t_bucket: int = 8, max_frames: int = 256,
+                native: bool = True) -> Tuple[np.ndarray, np.ndarray]:
     """Zero-pad clips on T to a shared bucket (longer clips keep their
-    head) and stack to (B, T, H, W, C) uint8."""
+    head) and stack to (B, T, H, W, C) uint8: with ``native`` through the
+    C++ collate (parallel memcpy, the GIL released), on numpy where it
+    cannot be built or with ``native=False``. The bytes are the same
+    either way."""
     shapes = {c.shape[1:] for c in clips}
     if len(shapes) > 1:
         raise ValueError(
@@ -158,6 +176,9 @@ def pad_collate(clips: Sequence[np.ndarray], labels: Sequence[int],
     t_out = bucket_frames(max(c.shape[0] for c in clips), t_bucket,
                           max_frames)
     batch = np.zeros((len(clips), t_out) + clips[0].shape[1:], np.uint8)
+    if native and native_core.native_collate(batch, clips):
+        return batch, np.asarray(labels, np.int64)
+    native_core.COLLATES["numpy"] += 1
     for i, clip in enumerate(clips):
         t_i = min(clip.shape[0], t_out)
         batch[i, :t_i] = clip[:t_i]

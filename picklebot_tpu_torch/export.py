@@ -173,7 +173,7 @@ def main(argv=None):
 
     from picklebot_tpu_torch.core.policy import DtypePolicy
     from picklebot_tpu_torch.models.registry import initialize_model
-    from picklebot_tpu_torch.serve import load_weights
+    from picklebot_tpu_torch.convert import load_weights
     from picklebot_tpu_torch.utils.config import (load_config,
                                                   replicated_equivalent)
     from picklebot_tpu_torch.utils.devices import resolve_device

@@ -51,6 +51,7 @@ import time
 
 import numpy as np
 
+from picklebot_tpu_torch.convert import load_weights
 from picklebot_tpu_torch.data.dataset import bucket_frames, pad_collate
 
 BALL_STRIKE = {0: "ball", 1: "strike"}
@@ -336,43 +337,6 @@ def stream_clip(model, frames, chunk, policy, device, criterion,
                 logits = logits.float().cpu().numpy()
                 rec = decode_logits(logits, criterion, num_classes)[0]
                 yield {"frame": start + size, **rec}, logits
-
-
-def load_weights(path, model, ema=False):
-    """Load serving weights into ``model``: a ``.pth`` (reference keys) or
-    a snapshot of the port's trainer (its ``model`` state dict, with
-    ``ema`` its EMA weights over the parameters, as the trainer's eval
-    scores them). Raises SystemExit for ``ema`` without EMA weights, as
-    the JAX server does, and NotImplementedError for any other path (an
-    Orbax snapshot of the JAX package)."""
-    from picklebot_tpu_torch.convert import load_pth
-    from picklebot_tpu_torch.train import checkpoint as ckpt
-
-    if path.endswith(".pth"):
-        if ema:
-            # a .pth holds one weight set: --ema would hand back raw ones
-            raise SystemExit(
-                "--ema requires a training snapshot (the EMA weights are "
-                "part of the training state); a .pth file has no EMA "
-                "stream")
-        return load_pth(path, model)
-    if not ckpt.is_snapshot(path):
-        raise NotImplementedError(
-            f"checkpoint {path!r}: the port serves a .pth or its own "
-            "snapshot files; Orbax snapshots are the JAX package's (export "
-            "one's weights as a .pth with python -m picklebot_tpu.convert)")
-    payload = ckpt.load_checkpoint(path)
-    model.load_state_dict(payload["model"], strict=True)
-    if ema:
-        if payload.get("ema") is None:
-            raise SystemExit(
-                "--ema: this snapshot has no EMA weights (train with "
-                "config ema_decay > 0)")
-        import torch
-        with torch.no_grad():
-            for name, p in model.named_parameters():
-                p.copy_(payload["ema"][name])
-    return model
 
 
 def exported_prep(clip, frames, size):

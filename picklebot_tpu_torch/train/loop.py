@@ -23,7 +23,9 @@ on the position, so the resumed run is the uninterrupted one);
 two baselines; ``warm_start`` (weights and BatchNorm statistics only) and
 ``warm_start_partial`` (the tensors whose key and shape match); the
 ``statistics/*.npy`` artifacts. Ctrl-C and SIGTERM end the run early and
-still write the final snapshot and model.
+still write the final snapshot and model. ``autotune`` measures
+cuDNN's algorithm search off and on (``utils/autotune.py``) and keeps the
+winner for the run.
 
 Every config option this trainer does not port raises NotImplementedError
 naming its ROADMAP.md item; none is silently ignored.
@@ -54,13 +56,13 @@ from picklebot_tpu_torch.train.metrics import SummaryWriter, windowed_average
 from picklebot_tpu_torch.train.optim import OPTIMIZERS, cosine_annealing_lr
 from picklebot_tpu_torch.train.step import (ema_init, make_eval_step,
                                             make_train_step)
+from picklebot_tpu_torch.utils.autotune import (autotune_config,
+                                                cudnn_benchmark)
 from picklebot_tpu_torch.utils.config import Config
 from picklebot_tpu_torch.utils.devices import resolve_device
 
 # config option -> (is it set?, ROADMAP.md item that ports it)
 UNPORTED = {
-    "autotune": (lambda c: c.autotune, "queue A, item A17"),
-    "profile": (lambda c: c.profile, "queue A, item A17"),
     "data_parallel": (lambda c: (c.data_parallel or 1) > 1,
                       "queue A, item A18"),
     "dcn_data_parallel": (lambda c: c.dcn_data_parallel > 1,
@@ -190,9 +192,23 @@ def train(config: Config, max_steps: Optional[int] = None,
           device="cuda") -> dict:
     """Train ``config``'s model on ``device`` (``cuda`` raises without a
     card); stop after ``max_steps`` optimizer steps if given. Returns a
-    summary dict (losses, accuracies, the final model's path)."""
+    summary dict (losses, accuracies, the final model's path).
+
+    With ``autotune`` the measured ``cudnn.benchmark`` choice
+    (``utils/autotune.py``, cached; ``varying_input_size`` skips it)
+    holds for the run, and the flag is restored after. ``profile`` is the
+    CLI's (cProfile around this call)."""
     check_ported(config)
     device = resolve_device(device)
+    benchmark = None
+    if config.autotune:
+        config, benchmark = autotune_config(config, "train", device=device)
+        print(f"autotune: cudnn.benchmark={benchmark}")
+    with cudnn_benchmark(benchmark):
+        return _train(config, max_steps, device)
+
+
+def _train(config: Config, max_steps: Optional[int], device) -> dict:
     policy = DtypePolicy.bf16() if config.use_autocast else DtypePolicy.f32()
     model = initialize_model(config)
     if config.freeze_params:

@@ -1,4 +1,5 @@
-"""Build the port's CUDA sources into shared libraries, at first use.
+"""Build the port's CUDA and host C++ sources into shared libraries, at
+first use.
 
 Each ``csrc/<name>.cu`` compiles on its own with ``nvcc`` into
 ``picklebot_tpu_torch/_build/<name>-<hash>.so`` (a directory git ignores),
@@ -6,6 +7,12 @@ where the hash covers the source and the flags, so an edited source
 rebuilds and an unchanged one loads from the cache. The libraries have a
 plain C interface and load with ``ctypes``: no PyTorch headers, so a build
 takes seconds. ``build_all`` starts one ``nvcc`` per source at once.
+
+``build_host`` is the host compiler's path beside it: a C++ source of the
+data pipeline (``data/native_src/*.cpp``) through ``g++`` into the same
+directory under the same naming. Both write under a temporary name and
+rename, so processes that build one library at once (test workers) are
+harmless to each other.
 """
 
 from __future__ import annotations
@@ -13,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 from pathlib import Path
@@ -39,10 +47,51 @@ def _nvcc() -> str:
                        "or set CUDA_HOME): the port's kernels build with it")
 
 
+def _hashed(src: Path, flags, host: str = "") -> Path:
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()
+                            + host.encode())
+    return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    return _hashed(CSRC / f"{name}.cu", NVCC_FLAGS)
+
+
+def host_library_path(src: Path, flags) -> Path:
+    """Where ``build_host(src, flags)`` puts its library. The hash also
+    covers the host (its name and architecture): a library built with
+    ``-march=native``, or linked against one machine's shared libraries,
+    is not taken for another machine's when a tree is copied."""
+    return _hashed(Path(src), flags,
+                   f"{platform.node()}/{platform.machine()}")
+
+
+def build_host(src: Path, flags) -> Path:
+    """Compile the C++ source ``src`` with ``g++ <flags>`` (compile and
+    link flags, ``-shared`` among them) into ``_build/<stem>-<hash>.so``
+    unless it is there. Raises RuntimeError with the compiler's output if
+    the build fails."""
+    out = host_library_path(src, flags)
+    if out.exists():
+        return out
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("g++ not found: the port's host libraries "
+                           f"({Path(src).name}) build with it")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    flags = list(flags)
+    # link libraries (-l...) follow the source, as the linker reads them
+    libs = [f for f in flags if f.startswith("-l")]
+    cmd = [cxx, *[f for f in flags if not f.startswith("-l")], "-o",
+           str(tmp), str(src), *libs]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{Path(src).name} (g++ exit {proc.returncode}):"
+                           f"\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)    # atomic: a concurrent build is harmless
+    return out
 
 
 def build_all(names: Iterable[str] = None) -> Dict[str, Path]:

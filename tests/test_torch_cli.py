@@ -8,8 +8,10 @@ TensorBoard scalars under the JAX loop's tags, and a ``.pth`` that loads
 strict into the port and, through ``load_pth`` with ``key_map_for``, into
 the JAX package with the same values. The port's copies of the data
 loader and the tfevents writer give what the JAX package's give, and every
-trainer option not ported yet (the parallel layouts, resize, tooling)
-is refused with its ROADMAP.md item.
+trainer option not ported yet (the parallel layouts) is refused with its
+ROADMAP.md item. ``--profile`` writes cProfile's ``train_stats.prof``,
+``--torch-profile-dir`` a torch.profiler trace, and ``autotune`` trains
+with the measured ``cudnn.benchmark``.
 """
 
 import dataclasses
@@ -125,8 +127,9 @@ def test_cli_on_cuda_without_a_card_raises(tmp_path):
         cli.main([_config(tmp_path, "MobileNetLarge3D"), "--steps", "1"])
 
 
-# options refused once and ported since
-PORTED_SINCE = ("input_size",)
+# options refused once and ported since: the resize of A16, the
+# autotuner and cProfile of A17
+PORTED_SINCE = ("input_size", "autotune", "profile")
 
 
 @pytest.mark.parametrize("option,value", [
@@ -138,8 +141,8 @@ PORTED_SINCE = ("input_size",)
 def test_unported_options_are_refused_naming_roadmap(tmp_path, option,
                                                      value):
     """Each option the trainer does not port is refused by name; one that
-    has been ported since (``input_size``, the resize of A16) passes the
-    check instead."""
+    has been ported since (``input_size``, the resize of A16; ``autotune``
+    and ``profile``, A17) passes the check instead."""
     config = dataclasses.replace(load_config(_config(tmp_path, "MobileViT")),
                                  **{option: value})
     if option in PORTED_SINCE:
@@ -149,6 +152,53 @@ def test_unported_options_are_refused_naming_roadmap(tmp_path, option,
     assert option in UNPORTED
     with pytest.raises(NotImplementedError, match=f"{option}.*ROADMAP"):
         train(config, device="cpu")
+
+
+def test_cli_profile_writes_train_stats(tmp_path, capsys):
+    import pstats
+    cli.main([_config(tmp_path, "MobileNetLarge3D"), "--device", "cpu",
+              "--steps", "1", "--profile"])
+    assert "profile dumped to train_stats.prof" in capsys.readouterr().out
+    prof = tmp_path / "train_stats.prof"        # the working directory
+    stats = pstats.Stats(str(prof))
+    assert any(fn[2] == "train" for fn in stats.stats)
+
+
+def test_cli_profile_from_the_config(tmp_path, capsys):
+    cli.main([_config(tmp_path, "MobileNetLarge3D", profile=True),
+              "--device", "cpu", "--steps", "1"])
+    assert (tmp_path / "train_stats.prof").exists()
+
+
+def test_cli_torch_profile_dir_writes_a_trace(tmp_path):
+    import glob
+    out = tmp_path / "trace"
+    summary = cli.main([_config(tmp_path, "MobileNetLarge3D",
+                                synthetic_shape=[4, 32, 32], max_frames=4,
+                                synthetic_len=4),
+                        "--device", "cpu", "--steps", "1",
+                        "--torch-profile-dir", str(out)])
+    assert summary["global_step"] == 2
+    (path,) = glob.glob(str(out / "*.pt.trace.json"))
+    with open(path) as fh:
+        names = {e.get("name") for e in json.load(fh)["traceEvents"]}
+    assert "aten::convolution" in names
+    assert not (tmp_path / "train_stats.prof").exists()
+
+
+def test_config_autotune_trains_on_the_cpu(tmp_path, monkeypatch):
+    cache = tmp_path / "autotune.json"
+    monkeypatch.setenv("PICKLEBOT_AUTOTUNE_CACHE", str(cache))
+    flag = torch.backends.cudnn.benchmark
+    summary = cli.main([_config(tmp_path, "MobileNetLarge3D",
+                                autotune=True, synthetic_shape=[4, 32, 32],
+                                max_frames=4),
+                        "--device", "cpu", "--steps", "1"])
+    assert all(math.isfinite(v) for v in summary["train_losses"])
+    assert torch.backends.cudnn.benchmark == flag
+    (key, entry), = json.loads(cache.read_text()).items()
+    assert key.startswith("cpu|MobileNetLarge3D|train|2x4x32x32x3|f32|")
+    assert set(entry["measured"]) == {"benchmark_off", "benchmark_on"}
 
 
 def test_orbax_checkpoint_is_refused_naming_roadmap(tmp_path):

@@ -49,7 +49,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 "ops.folded_conv", "models.movinet",
                 "models.mobilenet2d_lstm", "models.mobilevitv2", "bench",
                 "core.remat", "data.augment", "train.freeze",
-                "train.checkpoint", "export", "ops.resize", "ops.library"):
+                "train.checkpoint", "export", "ops.resize", "ops.library",
+                "data.native", "utils.summary", "utils.profiling",
+                "utils.autotune", "utils.build"):
         assert f"picklebot_tpu_torch.{mod}" in res["modules"]
     assert res["launches"] == {"pool": 0, "main": 0}
     assert res["flash_launches"] == {"packed": 0, "heads": 0, "dq": 0,
