@@ -10,10 +10,11 @@
     python3 chip_smoke.py --only trainx        # the trainer extras
     python3 chip_smoke.py --only surface       # resize, export, HTTP
     python3 chip_smoke.py --only tooling       # native I/O, the CLI's tools
+    python3 chip_smoke.py --only dp            # data parallelism and ZeRO
     python3 chip_smoke.py --only kernels serve # or any of kernels, fused,
                                                # conv, flash, serve, train,
                                                # trainx, timing, stream, v2,
-                                               # bench, surface, tooling
+                                               # bench, surface, tooling, dp
     python3 chip_smoke.py --ab-forward DIR     # Large3D's eager forward of
                                                # the tree at DIR and of this
                                                # one, in turns
@@ -182,7 +183,31 @@ kernels summary):
               cudnn.benchmark off and on); the summary's totals of
               MobileNetLarge3D and MobileViT-s and their GFLOPs per clip.
               At most 120 s of its own clock
- 13. summary  the collates of the whole run (none on numpy), {"kernels":
+ 13. dp       data parallelism and ZeRO on the one card, MobileNetLarge3D
+              at full width (seed 0, 32x224x224, lr 3e-4, 2 steps a run):
+              NCCL at world 1 (bs 8 in 2 microbatches, bf16, AdamW8bit)
+              through the train step's DP path against the same steps
+              with no process group, deterministic algorithms on
+              (bit-equal expected; exactly 8 pool and 15 main launches
+              per microbatch), and one more step of each in turns (CUDA
+              events); whether NCCL takes two ranks on one card (a probe,
+              recorded); two processes of this script sharing the card
+              over gloo (--dp-rank), each bs 4 of a global bs-8 batch,
+              DP, ZeRO-1 and ZeRO-3 in f32 (TF32 off, AdamW) and bf16
+              (AdamW8bit): DP against a one-process emulation of its
+              semantics on the card (bit-equal expected), f32 ZeRO-1 and
+              ZeRO-3 against DP and bf16 ZeRO-3 against ZeRO-1 (bit-equal
+              expected; else f32 1e-5 of max|ref|, bf16 the train
+              bounds), every rank's launches exact and its weights equal
+              to the other's, its parameter and optimizer-state bytes,
+              peak memory, collective bytes per step and step times (one
+              card shared: no speed figure); the autotuner's broadcast (rank 1 takes rank
+              0's winner, measuring nothing); make_sharded_predict_fn over
+              two replicas on cuda:0 at a ragged batch of 5 against the
+              unsharded predictor (the serve bound; 8 pool and 15 main
+              launches per replica call); serve --data-parallel 2 exiting
+              non-zero and naming the one card found
+ 14. summary  the collates of the whole run (none on numpy), {"kernels":
               [...]}, the card line, and last {"ok": true, "device": ...}
 Per-shape numbers also go to chiprun_out/chip_smoke.json. Without CUDA it
 exits with code 2 and prints no result. Imports nothing of JAX.
@@ -405,9 +430,25 @@ TOOLING_CUTS = dict(TRAIN_CUTS, synthetic_len=32, autotune=True)
 TOOLING_STEPS = 2
 SUMMARY_TOTALS = {"MobileNetLarge3D": 4_205_675, "MobileViT-s": 8_453_136}
 TOOLING_MAX_S = 120.0
+# dp: MobileNetLarge3D at full width under data parallelism on the one
+# card, DP_STEPS steps per run at a constant lr: NCCL at world 1 (bs 8 in
+# 2 microbatches, bf16, AdamW8bit), and two processes sharing the card
+# over gloo (each rank bs 4 of a global bs-8 batch, one microbatch) in
+# each of DP_JOBS: (name, ZeRO stage, dtype, optimizer). f32 runs with
+# TF32 off; one that is not bit-equal to its reference must lie within
+# DP_F32_REL_TOL of each tensor's max|ref|, a bf16 one's losses within
+# TRAIN_LOSS_REL_TOL. A rank is killed past DP_RANK_TIMEOUT seconds.
+DP_STEPS, DP_LR = 2, 3e-4
+DP_JOBS = (("dp_f32", 0, "f32", "adamw"), ("z1_f32", 1, "f32", "adamw"),
+           ("z3_f32", 3, "f32", "adamw"),
+           ("dp_bf16", 0, "bf16", "adamw8bit"),
+           ("z1_bf16", 1, "bf16", "adamw8bit"),
+           ("z3_bf16", 3, "bf16", "adamw8bit"))
+DP_F32_REL_TOL = 1e-5
+DP_RANK_TIMEOUT = 240
 # what --only can pick; with no --only every phase runs
 PHASES = ("kernels", "fused", "conv", "flash", "serve", "train", "trainx",
-          "timing", "stream", "v2", "bench", "surface", "tooling")
+          "timing", "stream", "v2", "bench", "surface", "tooling", "dp")
 
 
 def emit(obj):
@@ -3859,6 +3900,460 @@ def phase_trainx_remat(counters, feats, labels, gpu_line):
     return res
 
 
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dp_batch(a, b, seed):
+    """DP_STEPS steps of (a, b) uint8 32x224x224 clips and labels."""
+    rng = np.random.RandomState(seed)
+    feats = rng.randint(0, 256, (DP_STEPS, a, b, 32, 224, 224, 3),
+                        dtype=np.uint8)
+    return feats, rng.randint(0, 13, (DP_STEPS, a, b))
+
+
+def dp_setup(dtype, optimizer, zero=0, world=1, rank=0):
+    """MobileNetLarge3D at full width (seed 0) on the card with its train
+    step at the data-parallel layout of the process's group (``zero``: 0
+    DP, or the ZeRO stage over ``world`` ranks)."""
+    import torch
+    from picklebot_tpu_torch.core.policy import DtypePolicy
+    from picklebot_tpu_torch.parallel import zero as zero_mod
+    from picklebot_tpu_torch.train.optim import OPTIMIZERS
+    from picklebot_tpu_torch.train.step import make_train_step
+    model = large3d().to("cuda")
+    policy = DtypePolicy.bf16() if dtype == "bf16" else DtypePolicy.f32()
+    layout = None
+    if zero:
+        layout = zero_mod.ZeroLayout(model, world, rank, zero)
+        opt = zero_mod.zero_optimizer(OPTIMIZERS[optimizer], layout,
+                                      weight_decay=5e-4)
+    else:
+        opt = OPTIMIZERS[optimizer](model.parameters(), weight_decay=5e-4)
+    step = make_train_step(model, opt, "CE", lambda epoch: DP_LR, policy,
+                           device=torch.device("cuda"), zero=layout)
+    return model, opt, step, layout
+
+
+def dp_steps(step, feats, labels, rank=0, world=1):
+    """DP_STEPS steps on this rank's share of each global batch: losses
+    and the host-clock ms of each step (ending in a synchronize)."""
+    import torch
+    b = feats.shape[2] // world
+    losses, ms = [], []
+    for s in range(DP_STEPS):
+        t0 = time.perf_counter()
+        m = step(0, feats[s][:, rank * b:(rank + 1) * b],
+                 labels[s][:, rank * b:(rank + 1) * b], s * feats.shape[1])
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(m["loss"].float().cpu())
+    return losses, ms
+
+
+def host_state(model):
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def dp_diff(label, got, want, got_losses, want_losses, dtype):
+    """A run's state dict and losses against a reference's: bit-equal
+    expected; else f32 within DP_F32_REL_TOL of each tensor's max|ref|,
+    bf16 losses within TRAIN_LOSS_REL_TOL (the train bounds, PERF.md
+    section 2), the readings kept either way."""
+    import torch
+    bit_equal = all(torch.equal(got[k], want[k]) for k in want) and all(
+        torch.equal(a, b) for a, b in zip(got_losses, want_losses))
+    rel = max(((got[k].double() - want[k].double()).abs().max()
+               / want[k].double().abs().max().clamp(min=1e-30)).item()
+              for k in want if want[k].is_floating_point())
+    loss_rel = max(((a - b).abs() / b.abs()).max().item()
+                   for a, b in zip(got_losses, want_losses))
+    ok = bit_equal or (rel <= DP_F32_REL_TOL if dtype == "f32"
+                       else loss_rel <= TRAIN_LOSS_REL_TOL)
+    out = {"bit_equal": bit_equal, "max_rel_err": rel,
+           "loss_max_rel_err": loss_rel}
+    if not ok:
+        raise AssertionError(f"dp {label}: {out}")
+    return out
+
+
+def dp_world1(counters):
+    """NCCL at world 1: 2 bf16 steps (bs 8, 2 microbatches, AdamW8bit)
+    through the DP path of the train step, against the same 2 steps with
+    no process group, deterministic algorithms on: bit-equal expected;
+    exact launches; then one more step of each in turns A B B A (CUDA
+    events)."""
+    import torch
+    import torch.distributed as dist
+    from picklebot_tpu_torch.parallel import mesh
+    feats, labels = dp_batch(2, 8, 11)
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port()),
+           "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        with deterministic():
+            ref_model, _, ref_step, _ = dp_setup("bf16", "adamw8bit")
+            ref_losses, _ = dp_steps(ref_step, feats, labels)
+            mesh.init_distributed()
+            backend = dist.get_backend()
+            model, _, step, _ = dp_setup("bf16", "adamw8bit")
+            zero_counters(counters)
+            mesh.reset_counts()
+            losses, ms = dp_steps(step, feats, labels)
+            launches = read_counters(counters)
+            collectives = mesh.counts()
+            diff = dp_diff("nccl world 1", host_state(model),
+                           host_state(ref_model), losses, ref_losses, "bf16")
+            turns = {"no_group": [], "nccl_world1": []}
+            x = (feats[0], labels[0])
+            for label, fn in (("no_group", ref_step), ("nccl_world1", step),
+                              ("nccl_world1", step), ("no_group", ref_step)):
+                turns[label].append(time_ms(lambda: fn(0, *x), reps=1))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    want = launches_wanted(fused={"pool": 8 * 2 * DP_STEPS,
+                                  "main": 15 * 2 * DP_STEPS})
+    if launches != want:
+        raise AssertionError(f"dp nccl world 1 launches {launches}, want "
+                             f"{want}")
+    out = {"backend": backend, **diff, "losses": [l.tolist() for l in losses],
+           "launches": launches, "collectives_per_step": {
+               k: {"count": v["count"] / DP_STEPS,
+                   "bytes": v["bytes"] / DP_STEPS}
+               for k, v in collectives.items()},
+           "step_ms_host": ms, "step_ms_events_in_turns": turns}
+    emit({"phase": "dp", "part": "nccl_world1", **out})
+    return out
+
+
+def dp_spawn(mode, out_dir, timeout):
+    """Two processes of this script on the one card (``--dp-rank``):
+    their outputs and exit codes; killed past ``timeout`` seconds."""
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+         "--dp-port", str(port), "--dp-out", out_dir, "--dp-mode", mode],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=ROOT) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=timeout)[0])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                outs.append(p.communicate()[0] + "\n[killed: timeout]")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs, [p.returncode for p in procs]
+
+
+def dp_rank_bytes(model, opt, layout):
+    """This rank's parameter and optimizer-state bytes at rest, counted
+    from the tensors."""
+    params = (sum(s.numel() * s.element_size() for s in layout.shards)
+              if layout is not None and layout.stage == 3 else
+              sum(p.numel() * p.element_size() for p in model.parameters()))
+    moments = [t for st in opt.m + opt.v
+               for t in (st if isinstance(st, tuple) else (st,))]
+    return params, sum(t.numel() * t.element_size() for t in moments)
+
+
+def dp_rank_main(args):
+    """One rank of the two-process runs (``--dp-rank``): gloo on cuda:0.
+    Mode ``gloo``: each of DP_JOBS, DP_STEPS steps of bs 4 (the rank's
+    half of a global bs-8 batch) under deterministic algorithms, then the
+    autotuner's broadcast; mode ``nccl_probe``: one NCCL all-reduce, to
+    see whether NCCL takes two ranks on one card."""
+    import hashlib
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    from picklebot_tpu_torch.parallel import mesh
+    rank = args.dp_rank
+    if args.dp_mode == "nccl_probe":
+        try:
+            mesh.init_distributed(f"localhost:{args.dp_port}",
+                                  backend="nccl", device="cuda:0", rank=rank,
+                                  world_size=2)
+            t = torch.ones(4, device="cuda")
+            dist.all_reduce(t)
+            torch.cuda.synchronize()
+            print(json.dumps({"dp_rank": rank, "nccl": f"ran: {t.tolist()}"}))
+        except Exception as e:      # noqa: BLE001 -- the reading
+            print(json.dumps({"dp_rank": rank, "nccl":
+                              f"refused: {type(e).__name__}: {e}"[:600]}))
+        return 0
+    from picklebot_tpu_torch.train import checkpoint as ckpt
+    mesh.init_distributed(f"localhost:{args.dp_port}", backend="gloo",
+                          device="cuda:0", rank=rank, world_size=2)
+    counters = all_counters()
+    feats, labels = dp_batch(1, 8, 12)
+    results = {}
+    with deterministic():
+        for name, zero, dtype, optimizer in DP_JOBS:
+            torch.cuda.reset_peak_memory_stats()
+            model, opt, step, layout = dp_setup(dtype, optimizer, zero, 2,
+                                                rank)
+            params_b, opt_b = dp_rank_bytes(model, opt, layout)
+            zero_counters(counters)
+            mesh.reset_counts()
+            losses, ms = dp_steps(step, feats, labels, rank, 2)
+            launches = read_counters(counters)
+            collectives = mesh.counts()
+            snap = ckpt.snapshot(model, opt, None, 0, [0, 0], [0, 0, 0],
+                                 zero=layout)
+            digest = hashlib.sha256()
+            for k in sorted(snap["model"]):
+                digest.update(snap["model"][k].numpy().tobytes())
+            if rank == 0:
+                torch.save({"model": snap["model"], "losses": losses,
+                            "optimizer": snap["optimizer"]},
+                           os.path.join(args.dp_out, f"{name}.pt"))
+            results[name] = {
+                "losses": [l.tolist() for l in losses], "step_ms_host": ms,
+                "launches": launches, "digest": digest.hexdigest(),
+                "param_bytes": params_b, "optimizer_state_bytes": opt_b,
+                "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                "collectives_per_step": {
+                    k: {"count": v["count"] / DP_STEPS,
+                        "bytes": v["bytes"] / DP_STEPS}
+                    for k, v in collectives.items()}}
+            del model, opt, step, layout, snap
+            torch.cuda.empty_cache()
+    results["autotune"] = dp_rank_autotune(rank, args.dp_out)
+    with open(os.path.join(args.dp_out, f"rank{rank}.json"), "w") as f:
+        json.dump(results, f)
+    print(json.dumps({"dp_rank": rank, "launches": {
+        k: v["launches"]["fused"] for k, v in results.items()
+        if isinstance(v, dict) and "launches" in v}}))
+    dist.destroy_process_group()
+    return 0
+
+
+def dp_rank_autotune(rank, out_dir):
+    """``autotune_config`` at world 2 (deterministic algorithms off: under
+    them there is one candidate): rank 0 measures, rank 1 takes its
+    winner and measures nothing. Each rank its own cache file."""
+    from picklebot_tpu_torch.utils import autotune as at
+    from picklebot_tpu_torch.utils.config import Config
+    calls = []
+    real = at.measure_candidate
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+    at.measure_candidate = counted
+    os.environ["PICKLEBOT_AUTOTUNE_CACHE"] = os.path.join(
+        out_dir, f"autotune_rank{rank}.json")
+    cfg = Config(model_name="MobileNetLarge3D", num_classes=13,
+                 batch_size=2, effective_batch_size=2,
+                 synthetic_shape=(8, 64, 64), autotune=True).validate()
+    try:
+        _, flag = at.autotune_config(cfg, "train", device="cuda:0")
+    finally:
+        at.measure_candidate = real
+    return {"flag": flag, "measured": len(calls)}
+
+
+def dp_emulate(dtype, optimizer, feats, labels):
+    """The DP semantics at 2 ranks in one process on the card: each rank's
+    half in turn, from its own BatchNorm buffers and with its rank's
+    dropout seed; then the gradients summed / 2, the buffers averaged,
+    the losses averaged and one update. Deterministic algorithms on."""
+    import torch
+    from picklebot_tpu_torch.core.policy import DtypePolicy
+    from picklebot_tpu_torch.train.optim import OPTIMIZERS
+    from picklebot_tpu_torch.train.step import _micro_seed, make_train_step
+    model = large3d().to("cuda")
+    opt = OPTIMIZERS[optimizer](model.parameters(), weight_decay=5e-4)
+    policy = DtypePolicy.bf16() if dtype == "bf16" else DtypePolicy.f32()
+    noop = type("NoUpdate", (), {"step": lambda self, lr: None})()
+    local = [make_train_step(model, noop, "CE", lambda e: DP_LR, policy,
+                             seed=_micro_seed(0, -1 - r),
+                             device=torch.device("cuda")) for r in range(2)]
+    params = list(model.parameters())
+    stats = [k for k, _ in model.named_buffers()
+             if k.endswith((".running_mean", ".running_var"))]
+    buffers = [{k: b.clone() for k, b in model.named_buffers()}
+               for _ in range(2)]
+    b = feats.shape[2] // 2
+    losses = []
+    with deterministic():
+        for s in range(DP_STEPS):
+            grads, loss = None, None
+            for r in range(2):
+                model.load_state_dict(buffers[r], strict=False)
+                m = local[r](0, feats[s][:, r * b:(r + 1) * b],
+                             labels[s][:, r * b:(r + 1) * b],
+                             s * feats.shape[1])
+                buffers[r] = {k: v.clone() for k, v in model.named_buffers()}
+                g = [p.grad.clone() for p in params]
+                grads = g if grads is None else [x + y for x, y in
+                                                 zip(grads, g)]
+                loss = m["loss"] if loss is None else loss + m["loss"]
+            with torch.no_grad():
+                for p, g in zip(params, grads):
+                    p.grad = g / 2
+                opt.step(DP_LR)
+                for k in stats:
+                    avg = (buffers[0][k] + buffers[1][k]) / 2
+                    buffers[0][k] = buffers[1][k] = avg
+                model.load_state_dict(buffers[0], strict=False)
+            losses.append((loss / 2).float().cpu())
+    torch.cuda.synchronize()
+    return host_state(model), losses
+
+
+def dp_gloo(counters):
+    """The two-process runs on the one card over gloo, checked against
+    the one-process emulation and against each other."""
+    import torch
+    with tempfile.TemporaryDirectory(prefix="dp_") as out_dir:
+        t0 = time.perf_counter()
+        outs, rcs = dp_spawn("gloo", out_dir, DP_RANK_TIMEOUT)
+        spawn_s = time.perf_counter() - t0
+        if any(rcs):
+            raise AssertionError(f"dp gloo ranks exited {rcs}:\n"
+                                 + "\n".join(o[-3000:] for o in outs))
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        saved = {name: torch.load(os.path.join(out_dir, f"{name}.pt"),
+                                  weights_only=False)
+                 for name, *_ in DP_JOBS}
+    want = launches_wanted(fused={"pool": 8 * DP_STEPS,
+                                  "main": 15 * DP_STEPS})
+    checks = {}
+    for name, *_ in DP_JOBS:
+        for r in range(2):
+            if ranks[r][name]["launches"] != want:
+                raise AssertionError(f"dp {name} rank {r} launches "
+                                     f"{ranks[r][name]['launches']}, want "
+                                     f"{want}")
+        if ranks[0][name]["digest"] != ranks[1][name]["digest"]:
+            raise AssertionError(f"dp {name}: the ranks' weights differ")
+    feats, labels = dp_batch(1, 8, 12)
+    for dtype, optimizer in (("f32", "adamw"), ("bf16", "adamw8bit")):
+        ref, ref_losses = dp_emulate(dtype, optimizer, feats, labels)
+        dp = saved[f"dp_{dtype}"]
+        checks[f"dp_{dtype}_vs_emulation"] = dp_diff(
+            f"dp {dtype} against the emulation", dp["model"], ref,
+            dp["losses"], ref_losses, dtype)
+    for a, b in (("z1_f32", "dp_f32"), ("z3_f32", "dp_f32"),
+                 ("z3_bf16", "z1_bf16")):
+        dtype = "f32" if a.endswith("f32") else "bf16"
+        checks[f"{a}_vs_{b}"] = dp_diff(
+            f"{a} against {b}", saved[a]["model"], saved[b]["model"],
+            saved[a]["losses"], saved[b]["losses"], dtype)
+    za, zb = saved["z3_bf16"]["optimizer"], saved["z1_bf16"]["optimizer"]
+    flat = [(x, y) for part in ("m", "v") for sx, sy in zip(za[part],
+                                                           zb[part])
+            for x, y in zip(sx if isinstance(sx, tuple) else (sx,),
+                            sy if isinstance(sy, tuple) else (sy,))]
+    checks["z3_bf16_vs_z1_bf16"]["optimizer_bit_equal"] = all(
+        torch.equal(x, y) for x, y in flat)
+    tune = [r["autotune"] for r in ranks]
+    if tune[0]["flag"] != tune[1]["flag"] or tune[1]["measured"] != 0 \
+            or tune[0]["measured"] == 0:
+        raise AssertionError(f"dp autotune broadcast: {tune}")
+    res = {"checks": checks, "autotune": tune, "spawn_seconds": spawn_s,
+           "note": "two processes share one card: step times are not a "
+                   "speed figure",
+           "by_job": {name: {k: [ranks[r][name][k] for r in range(2)]
+                             for k in ("step_ms_host", "param_bytes",
+                                       "optimizer_state_bytes",
+                                       "peak_memory_bytes",
+                                       "collectives_per_step")}
+                      for name, *_ in DP_JOBS},
+           "launches": {f"rank{r}": {name: ranks[r][name]["launches"]
+                                     for name, *_ in DP_JOBS}
+                        for r in range(2)}}
+    emit({"phase": "dp", "part": "gloo_two_ranks", **res})
+    return res
+
+
+def dp_sharded_predict(counters):
+    """make_sharded_predict_fn over two replicas on cuda:0 at a ragged
+    batch of 5 (padded to 6, trimmed) against the unsharded predictor
+    (the serve bound); exact launches per replica call; serve
+    --data-parallel 2 on this one-card machine exits non-zero naming the
+    count found."""
+    import torch
+    from picklebot_tpu_torch import serve
+    from picklebot_tpu_torch.core.policy import DtypePolicy
+    from picklebot_tpu_torch.train.step import (make_predict_fn,
+                                                make_sharded_predict_fn)
+    model = large3d().to("cuda")
+    feats = np.random.RandomState(13).randint(0, 256, (5, 32, 224, 224, 3),
+                                              dtype=np.uint8)
+    sharded = make_sharded_predict_fn(model, ["cuda:0", "cuda:0"],
+                                      DtypePolicy.bf16())
+    sharded(feats)
+    zero_counters(counters)
+    got = sharded(feats)
+    torch.cuda.synchronize()
+    launches = read_counters(counters)
+    want = launches_wanted(fused={"pool": 16, "main": 30})
+    if launches != want or got.shape != (5, 13):
+        raise AssertionError(f"dp sharded predict: launches {launches} "
+                             f"(want {want}), shape {got.shape}")
+    single = make_predict_fn(model, DtypePolicy.bf16(), device="cuda")(feats)
+    check = logits_against_plain("dp sharded predict", torch.tensor(got),
+                                 torch.tensor(single))
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = os.path.join(tmp, "cfg.json")
+        with open(cfg, "w") as f:
+            json.dump(serve_config("MobileNetLarge3D"), f)
+        pth = os.path.join(tmp, "w.pth")
+        torch.save(host_state(model), pth)
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = serve.main([cfg, "--checkpoint", pth, "--csv", "x",
+                             "--data-parallel", "2"])
+    found = f"found {torch.cuda.device_count()}"
+    if rc == 0 or found not in err.getvalue():
+        raise AssertionError(f"serve --data-parallel 2: rc {rc}, "
+                             f"{err.getvalue()!r}")
+    out = {**check, "launches": launches,
+           "serve_data_parallel_2": {"rc": rc,
+                                     "stderr": err.getvalue().strip()}}
+    emit({"phase": "dp", "part": "sharded_predict", **out})
+    return out
+
+
+def phase_dp(counters):
+    """Data parallelism and ZeRO on the one card (module docstring)."""
+    t0 = time.perf_counter()
+    res = {"nccl_world1": dp_world1(counters)}
+    outs, rcs = dp_spawn("nccl_probe", tempfile.gettempdir(), 90)
+    probe = [json.loads(line) for o in outs for line in o.splitlines()
+             if line.startswith('{"dp_rank"')]
+    res["nccl_two_ranks_one_card"] = {"exit_codes": rcs, "ranks": probe,
+                                      "tail": [o[-600:] for o in outs]}
+    emit({"phase": "dp", "part": "nccl_two_ranks_one_card",
+          **res["nccl_two_ranks_one_card"]})
+    res["gloo"] = dp_gloo(counters)
+    res["sharded_predict"] = dp_sharded_predict(counters)
+    res["seconds"] = time.perf_counter() - t0
+    emit({"phase": "dp", "seconds": res["seconds"]})
+    return res
+
+
 def fused_entry(name, line, fused_per, launches_by_run):
     """Summary entry of one fused-bottleneck kernel: ms, plain, bound and
     library times summed over one bs-8 forward of each model (the top
@@ -4005,12 +4500,21 @@ def parse_args(argv):
         "entry on three runs), surface (the in-graph resize, the exported "
         "program, the HTTP server), tooling (the native collate and "
         "decoder, the CLI with the profilers and the autotuner, the "
-        "summary). A partial run prints no kernels summary")
+        "summary), dp (data parallelism and ZeRO: NCCL at world 1, two "
+        "processes on the card over gloo, the sharded predictor, the "
+        "autotuner's broadcast). A partial run prints no kernels summary")
     ap.add_argument(
         "--ab-forward", metavar="DIR", default=None,
         help="instead of the phases: MobileNetLarge3D's eager serve "
         "forward of the tree at DIR and of this one in turns A B B A A B "
         "B A")
+    # one rank of the dp phase's two-process runs (the phase starts them)
+    ap.add_argument("--dp-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--dp-port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-out", help=argparse.SUPPRESS)
+    ap.add_argument("--dp-mode", choices=("gloo", "nccl_probe"),
+                    help=argparse.SUPPRESS)
     return ap.parse_args(argv)
 
 
@@ -4027,6 +4531,8 @@ def main(argv=None):
               "port on an NVIDIA card", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    if args.dp_rank is not None:
+        return dp_rank_main(args)
     from picklebot_tpu_torch.utils.build import build_all
 
     gpu_line = nvidia_smi_line()
@@ -4186,6 +4692,10 @@ def main(argv=None):
     if selected("tooling"):
         tooling = phase_tooling(gpu_line, counters)
         seconds["tooling"] = tooling["seconds"]
+    dp = None
+    if selected("dp"):
+        dp = phase_dp(counters)
+        seconds["dp"] = dp["seconds"]
     seconds["total"] = time.perf_counter() - T_START
     emit({"phase": "seconds", **seconds})
 
@@ -4197,7 +4707,8 @@ def main(argv=None):
               "serve": {"MobileNetLarge3D": large, "MobileViT-s": vit,
                         "MobileNetSmall3D": small, "MoViNetA2": movinet},
               "train": train, "trainx": trainx, "stream": stream, "v2": v2,
-              "bench": bench_runs, "surface": surface, "tooling": tooling}
+              "bench": bench_runs, "surface": surface, "tooling": tooling,
+              "dp": dp}
     if only:
         skipped = [p for p in PHASES if not selected(p)
                    and not (p in ("fused", "conv", "flash")
@@ -4238,6 +4749,11 @@ def main(argv=None):
                     if isinstance(v, dict) and "launches" in v}
     runs.update({k: v["fused"] for k, v in surface_runs.items()})
     runs["tooling_cli"] = tooling["cli"]["launches"]["fused"]
+    runs["dp_nccl_world1"] = dp["nccl_world1"]["launches"]["fused"]
+    for rank, jobs in dp["gloo"]["launches"].items():
+        runs.update({f"dp_gloo_{rank}_{job}": launches["fused"]
+                     for job, launches in jobs.items()})
+    runs["dp_sharded_predict"] = dp["sharded_predict"]["launches"]["fused"]
     if tooling["decode"]["ffmpeg_available"]:
         runs["tooling_serve_ffmpeg"] = tooling["decode"]["serve"][
             "launches"]["fused"]

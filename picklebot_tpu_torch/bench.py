@@ -207,7 +207,8 @@ class Workload:
                 self.model, opt, cfg.criterion,
                 cosine_annealing_lr(cfg.learning_rate,
                                     max(cfg.max_iters, 1)),
-                self.policy, seed=cfg.seed, device=device, remat=remat)
+                self.policy, seed=cfg.seed, device=device, remat=remat,
+                data_parallel=False)
         elif mode == "infer":
             self.feats = torch.from_numpy(feats).to(device)
             self.model.eval()

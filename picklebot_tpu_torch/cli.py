@@ -8,6 +8,12 @@ config) runs the whole run under cProfile and dumps ``train_stats.prof``
 into the working directory, as the reference does; ``--torch-profile-dir
 DIR`` (the counterpart of ``--jax-profile-dir``) records a torch.profiler
 trace of the run into DIR (``utils/profiling.py``).
+
+Under torchrun (``RANK`` / ``WORLD_SIZE`` set) every process joins the
+process group first (``parallel/mesh.init_distributed``: NCCL on
+``cuda:LOCAL_RANK``, gloo with ``--device cpu``) and trains one replica:
+``torchrun --standalone --nproc_per_node N -m picklebot_tpu_torch.cli
+cfg.json``.
 """
 
 from __future__ import annotations
@@ -37,12 +43,12 @@ def main(argv=None):
 
     import torch
 
+    from picklebot_tpu_torch.parallel.mesh import init_distributed
     from picklebot_tpu_torch.train.loop import train
     from picklebot_tpu_torch.utils.config import load_config
-    from picklebot_tpu_torch.utils.devices import resolve_device
 
     config = load_config(args.config)
-    device = resolve_device(args.device)
+    device = init_distributed(device=args.device)
     kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     dtype = "bfloat16" if config.use_autocast else "float32"

@@ -7,7 +7,12 @@ libav core of ``data/native.py``, built at its first decode). Synthetic
 clips are byte-identical to the JAX package's: ``np.random.RandomState(
 index)`` and T - index % 4 frames. ``pad_collate`` zero-pads T to a
 bucket, with the native C++ collate where it builds and numpy otherwise
-(``native.COLLATES`` counts each path).
+(``native.COLLATES`` counts each path). ``shard`` / ``num_shards`` keep
+every ``num_shards``-th clip from ``shard`` on, truncated so that every
+shard has the same length (data-parallel ranks must take the same number
+of steps, so up to ``num_shards - 1`` clips of the tail are left out);
+synthetic content stays keyed on the global index, so no two shards hold
+the same clip.
 """
 
 from __future__ import annotations
@@ -84,6 +89,7 @@ class ClipDataset:
 
     def __init__(self, annotations_file: str, video_dir: str,
                  backend: str = "opencv",
+                 shard: int = 0, num_shards: int = 1,
                  synthetic_shape: Tuple[int, int, int] = (16, 224, 224),
                  synthetic_len: Optional[int] = None,
                  sample_fps: float = 0.0, synthetic_classes: int = 13,
@@ -107,6 +113,14 @@ class ClipDataset:
             self._synthetic_n_cls = max(int(self.labels.max()) + 1, 1)
         else:
             self.filenames, self.labels = read_annotations(annotations_file)
+        # the global index of each kept clip (synthetic content keys on it)
+        self._ids = np.arange(len(self.filenames))
+        if num_shards > 1:
+            per_shard = len(self.filenames) // num_shards
+            keep = slice(shard, None, num_shards)
+            self.filenames = self.filenames[keep][:per_shard]
+            self.labels = self.labels[keep][:per_shard]
+            self._ids = self._ids[keep][:per_shard]
 
     def __len__(self) -> int:
         return len(self.filenames)
@@ -136,8 +150,9 @@ class ClipDataset:
         label = int(self.labels[idx])
         if self.backend.startswith("synthetic"):
             t, h, w = self.synthetic_shape
-            rng = np.random.RandomState(idx)
-            t_i = max(1, t - (idx % 4))     # vary T: exercises the buckets
+            gidx = int(self._ids[idx])
+            rng = np.random.RandomState(gidx)
+            t_i = max(1, t - (gidx % 4))    # vary T: exercises the buckets
             if self.backend == "synthetic_learnable":
                 clip = (rng.randint(0, 100, (t_i, h, w, 3)) +
                         (label * 150) // self._synthetic_n_cls

@@ -37,8 +37,12 @@ call (``ops/resize.py``); ``--exported`` resizes on the host instead
 (cv2, to the artifact's fixed size).
 
 It runs on ``--device cuda`` (the default; an error if there is no card)
-or ``--device cpu``. ``--data-parallel N`` > 1 is queued in ROADMAP.md
-(A18).
+or ``--device cpu``. ``--data-parallel N`` shards each batch over N
+replicas (``train.step.make_sharded_predict_fn``): ``cuda:0`` ... ``cuda:N-1``
+(it exits non-zero, naming the count it found, on a machine with fewer
+cards; it never serves on fewer), or N replicas on the CPU with ``--device
+cpu``. A ragged batch pads to a multiple of N and is trimmed after.
+MoViNetA2Stream, ``--stream`` and ``--exported`` refuse it.
 """
 
 from __future__ import annotations
@@ -55,6 +59,21 @@ from picklebot_tpu_torch.convert import load_weights
 from picklebot_tpu_torch.data.dataset import bucket_frames, pad_collate
 
 BALL_STRIKE = {0: "ball", 1: "strike"}
+
+
+def _data_parallel_devices(n: int, device: str):
+    """--data-parallel N on ``device``: the N cards cuda:0 .. cuda:N-1, or
+    N CPU replicas; None (after saying why) where fewer cards exist."""
+    import torch
+    if torch.device(device).type == "cpu":
+        return ["cpu"] * n
+    found = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if found < n:
+        print(f"--data-parallel {n} needs {n} CUDA cards; found {found} "
+              "(pass --data-parallel <= the cards present)",
+              file=sys.stderr)
+        return None
+    return [f"cuda:{i}" for i in range(n)]
 
 
 def decode_logits(logits, criterion, num_classes):
@@ -511,8 +530,9 @@ def main(argv=None):
                    help="serve over HTTP instead: POST /predict with a "
                         "video file body -> JSON prediction (0 = any port)")
     p.add_argument("--data-parallel", type=int, default=1, metavar="N",
-                   help="shard each inference batch over N devices (not "
-                        "ported: ROADMAP.md A18)")
+                   help="shard each inference batch over N cards "
+                        "(cuda:0 .. cuda:N-1; N replicas with --device "
+                        "cpu)")
     p.add_argument("--batch-window", type=float, default=10.0, metavar="MS",
                    help="--http cross-request batching: wait up to MS ms "
                         "after the first request to coalesce up to --batch "
@@ -550,11 +570,17 @@ def main(argv=None):
     from picklebot_tpu_torch.core.policy import DtypePolicy
     from picklebot_tpu_torch.data.dataset import ClipDataset, decode_opencv
     from picklebot_tpu_torch.models.registry import initialize_model
-    from picklebot_tpu_torch.train.step import make_predict_fn
+    from picklebot_tpu_torch.train.step import (make_predict_fn,
+                                                make_sharded_predict_fn)
     from picklebot_tpu_torch.utils.config import (load_config,
                                                   replicated_equivalent)
     from picklebot_tpu_torch.utils.devices import resolve_device
 
+    dp_devices = None
+    if args.data_parallel > 1 and not args.stream:
+        dp_devices = _data_parallel_devices(args.data_parallel, args.device)
+        if dp_devices is None:
+            return 1
     device = resolve_device(args.device)
     config = replicated_equivalent(load_config(args.config))
     if args.stream:
@@ -571,15 +597,10 @@ def main(argv=None):
         if not args.clips:
             print("no clips given", file=sys.stderr)
             return 1
-    elif args.data_parallel > 1:
-        if config.model_name == "MoViNetA2Stream":
-            print("--data-parallel does not support MoViNetA2Stream "
-                  "(stream-buffer carry)", file=sys.stderr)
-            return 1
-        raise NotImplementedError(
-            f"--data-parallel {args.data_parallel}: serving sharded over "
-            "several cards is not ported yet (ROADMAP.md, queue A, item "
-            "A18)")
+    elif dp_devices is not None and config.model_name == "MoViNetA2Stream":
+        print("--data-parallel does not support MoViNetA2Stream "
+              "(stream-buffer carry)", file=sys.stderr)
+        return 1
     model = load_weights(args.checkpoint, initialize_model(config),
                          args.ema).to(device)
     policy = DtypePolicy.bf16() if config.use_autocast else DtypePolicy.f32()
@@ -587,8 +608,14 @@ def main(argv=None):
     std = config.std if config.apply_mean_std else None
     # clips decode at native resolution; config.input_size resizes them
     # inside the predictor (ops/resize.py)
-    predict = make_predict_fn(model, policy, mean=mean, std=std,
-                              input_size=config.input_size, device=device)
+    if dp_devices is not None:
+        predict = make_sharded_predict_fn(model, dp_devices, policy,
+                                          mean=mean, std=std,
+                                          input_size=config.input_size)
+    else:
+        predict = make_predict_fn(model, policy, mean=mean, std=std,
+                                  input_size=config.input_size,
+                                  device=device)
 
     def decode(path):
         return decode_opencv(path, config.sample_fps)

@@ -18,8 +18,12 @@ step_<e>`` after epoch e's eval and ``step_<e>_<n>`` after n optimizer
 steps of epoch e, ``{model_name}_best/`` and ``{run_name}_finished/``;
 ``latest_checkpoint`` ranks them, ``prune_epochs`` and ``prune_midepoch``
 keep the newest; ``SnapshotWriter`` writes them, on a background thread
-with ``async_checkpoint``. Orbax snapshots stay the JAX package's (its
-``python -m picklebot_tpu.convert`` exports their weights as a ``.pth``).
+with ``async_checkpoint``. In a data-parallel run rank 0 alone writes and
+prunes (the trainer's other ranks wait at a barrier after a blocking
+write); a ZeRO run's optimizer state is stored stacked by rank (see
+``snapshot``) and resharded for the resuming run's degree. Orbax snapshots
+stay the JAX package's (its ``python -m picklebot_tpu.convert`` exports
+their weights as a ``.pth``).
 """
 
 from __future__ import annotations
@@ -42,14 +46,29 @@ def _host(t: torch.Tensor) -> torch.Tensor:
 
 
 def snapshot(model, optimizer, ema, epoch: int, loop_state,
-             early_stop) -> dict:
+             early_stop, zero=None) -> dict:
     """The host copy of the whole training state (taken before any
-    background write starts, so training may go on meanwhile)."""
+    background write starts, so training may go on meanwhile). Under
+    ZeRO (``zero``, a ``parallel.zero.ZeroLayout``) it is a collective
+    that every rank enters: the optimizer state is gathered into the
+    (n, chunk) rank-stack layout and, at stage 3, the parameters and the
+    EMA into full leaves, so that a snapshot never depends on the run's
+    stage (``zero_degree_of`` reads its degree back)."""
+    from picklebot_tpu_torch.parallel import zero as zero_mod
+    if zero is None:
+        opt_state = optimizer.state_dict()
+    else:
+        opt_state = zero_mod.gather_optimizer_state(zero, optimizer)
+        if ema is not None and zero.stage == 3:
+            ema = zero_mod.zero3_unshard_params(
+                zero, [ema[k] for k in zero.names])
+    with zero_mod.gathered(zero):
+        weights = {k: _host(v) for k, v in model.state_dict().items()}
     return {"format": SNAPSHOT_FORMAT,
-            "model": {k: _host(v) for k, v in model.state_dict().items()},
+            "model": weights,
             "ema": None if ema is None else {k: _host(v)
                                              for k, v in ema.items()},
-            "optimizer": optimizer.state_dict(),
+            "optimizer": opt_state,
             "epoch": int(epoch),
             "loop_state": torch.as_tensor(np.asarray(loop_state, np.int64)),
             "early_stop": torch.as_tensor(np.asarray(early_stop,

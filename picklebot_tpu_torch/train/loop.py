@@ -1,6 +1,7 @@
 """The trainer: ``train(config, max_steps=None, device="cuda")``.
 
-The single-device subset of ``picklebot_tpu/train/loop.py``: the datasets,
+The counterpart of ``picklebot_tpu/train/loop.py`` without its TP, SP, PP
+and EP layouts: the datasets,
 gradient accumulation (``effective_batch_size // batch_size`` microbatches
 per optimizer step), epochs over ``max_iters`` with a per-epoch shuffle and
 the cosine schedule stepped per epoch, per-microbatch TensorBoard scalars
@@ -27,6 +28,22 @@ still write the final snapshot and model. ``autotune`` measures
 cuDNN's algorithm search off and on (``utils/autotune.py``) and keeps the
 winner for the run.
 
+Data parallelism: ``train()`` runs once per rank of a ``torch.distributed``
+process group (``parallel/mesh.py``; the CLI joins it under torchrun), and
+the replicas are the group's ranks, ``data_parallel`` (when set) must equal
+its size and ``dcn_data_parallel`` divide it (torchrun numbers ranks node
+by node, so the arithmetic is the one-level one, as the JAX hybrid mesh's
+is). ``batch_size`` is per replica: the global batch is ``batch_size x
+world``. Each rank loads its own ``ClipDataset`` shard, every batch pads
+to ``max_frames`` past one rank, the ranks take the smallest shard's
+number of train batches, and the eval's sums are added over the ranks
+(the eval itself holds no collective, so the ranks need not agree on its
+batch count). ``zero_sharding`` 1 or 3 shards the optimizer state (and at
+3 the parameters) over the ranks (``parallel/zero.py``). Rank 0 alone
+writes TensorBoard scalars, snapshots (full leaves, the optimizer state
+stacked by rank), the ``.pth`` and the statistics; a resume reshards the
+optimizer state for its own degree.
+
 Every config option this trainer does not port raises NotImplementedError
 naming its ROADMAP.md item; none is silently ignored.
 """
@@ -34,6 +51,7 @@ naming its ROADMAP.md item; none is silently ignored.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 import os
 import signal
@@ -50,6 +68,8 @@ from picklebot_tpu_torch.data.dataset import ClipDataset, read_annotations
 from picklebot_tpu_torch.data.augment import Augment
 from picklebot_tpu_torch.data.loader import DataLoader, accumulate_batches
 from picklebot_tpu_torch.models.registry import initialize_model
+from picklebot_tpu_torch.parallel import mesh
+from picklebot_tpu_torch.parallel import zero as zero_mod
 from picklebot_tpu_torch.train import checkpoint as ckpt
 from picklebot_tpu_torch.train.freeze import freeze, frozen_summary
 from picklebot_tpu_torch.train.metrics import SummaryWriter, windowed_average
@@ -63,11 +83,6 @@ from picklebot_tpu_torch.utils.devices import resolve_device
 
 # config option -> (is it set?, ROADMAP.md item that ports it)
 UNPORTED = {
-    "data_parallel": (lambda c: (c.data_parallel or 1) > 1,
-                      "queue A, item A18"),
-    "dcn_data_parallel": (lambda c: c.dcn_data_parallel > 1,
-                          "queue A, item A18"),
-    "zero_sharding": (lambda c: bool(c.zero_sharding), "queue A, item A19"),
     "model_parallel": (lambda c: c.model_parallel > 1, "queue A, item A20"),
     "sequence_parallel": (lambda c: c.sequence_parallel > 1,
                           "queue A, item A20"),
@@ -119,7 +134,33 @@ def _check_checkpoint(path: str):
             "picklebot_tpu.convert; ROADMAP.md, queue A, item A8)")
 
 
+def check_world(config: Config, world: int):
+    """The data-parallel degree of ``config`` against the process
+    group's ``world`` size: ``data_parallel`` (when set) must equal it,
+    and ``dcn_data_parallel`` must divide it."""
+    if config.data_parallel is not None and config.data_parallel != world:
+        raise ValueError(
+            f"data_parallel={config.data_parallel} but the process group "
+            f"has {world} rank(s): launch one process per replica (torchrun "
+            f"--nproc_per_node {config.data_parallel} -m "
+            "picklebot_tpu_torch.cli ...) or leave data_parallel unset")
+    if world % config.dcn_data_parallel:
+        raise ValueError(f"dcn_data_parallel={config.dcn_data_parallel} "
+                         f"must divide the {world} rank(s)")
+
+
+class _NoWriter:
+    """The TensorBoard writer of a rank other than 0: writes nothing."""
+
+    def add_scalar(self, *args, **kwargs):
+        pass
+
+    def close(self):
+        pass
+
+
 def _make_datasets(config: Config):
+    """The train and val datasets, each this rank's shard."""
     syn_classes = config.resolved_synthetic_classes()
     synthetic = config.data_backend.startswith("synthetic")
     if synthetic and (syn_classes > (config.num_classes
@@ -142,7 +183,8 @@ def _make_datasets(config: Config):
                   synthetic_len=config.synthetic_len,
                   sample_fps=config.sample_fps,
                   synthetic_classes=syn_classes,
-                  skip_bad_clips=config.skip_bad_clips)
+                  skip_bad_clips=config.skip_bad_clips,
+                  shard=mesh.rank(), num_shards=mesh.world())
     return (ClipDataset(config.train_annotations_file, config.video_paths,
                         **kwargs),
             ClipDataset(config.val_annotations_file, config.video_paths,
@@ -192,13 +234,15 @@ def train(config: Config, max_steps: Optional[int] = None,
           device="cuda") -> dict:
     """Train ``config``'s model on ``device`` (``cuda`` raises without a
     card); stop after ``max_steps`` optimizer steps if given. Returns a
-    summary dict (losses, accuracies, the final model's path).
+    summary dict (losses, accuracies, the final model's path). In a
+    process group every rank calls it, with its own device.
 
     With ``autotune`` the measured ``cudnn.benchmark`` choice
     (``utils/autotune.py``, cached; ``varying_input_size`` skips it)
     holds for the run, and the flag is restored after. ``profile`` is the
     CLI's (cProfile around this call)."""
     check_ported(config)
+    check_world(config, mesh.world())
     device = resolve_device(device)
     benchmark = None
     if config.autotune:
@@ -210,6 +254,7 @@ def train(config: Config, max_steps: Optional[int] = None,
 
 def _train(config: Config, max_steps: Optional[int], device) -> dict:
     policy = DtypePolicy.bf16() if config.use_autocast else DtypePolicy.f32()
+    n_ranks, rank, is_main = mesh.world(), mesh.rank(), mesh.is_main()
     model = initialize_model(config)
     if config.freeze_params:
         # before the optimizer is built: it keeps the trainable ones only
@@ -263,16 +308,36 @@ def _train(config: Config, max_steps: Optional[int], device) -> dict:
         else:
             print(f"Loaded checkpoint at epoch {start_epoch}")
     model.to(device)
-    optimizer = OPTIMIZERS[config.optimizer](
-        model.parameters(), weight_decay=config.weight_decay)
-    if opt_state is not None:
-        optimizer.load_state_dict(opt_state)
     # the EMA is seeded from the (possibly restored) weights when a run
     # turns it on, and dropped when it turns it off
     ema = None
     if config.ema_decay > 0:
         ema = ema_init(model) if ema_state is None else {
             k: v.to(device) for k, v in ema_state.items()}
+    zero = None
+    if config.zero_sharding and n_ranks > 1:
+        zero = zero_mod.ZeroLayout(model, n_ranks, rank,
+                                   stage=int(config.zero_sharding))
+        optimizer = zero_mod.zero_optimizer(
+            OPTIMIZERS[config.optimizer], zero,
+            weight_decay=config.weight_decay)
+        if ema is not None and zero.stage == 3:
+            ema = {k: zero.shard_value(ema[k], i).clone()
+                   for i, k in enumerate(zero.names)}
+    else:
+        optimizer = OPTIMIZERS[config.optimizer](
+            model.parameters(), weight_decay=config.weight_decay)
+    if opt_state is not None:
+        n_want = n_ranks if zero is not None else 0
+        n_saved = zero_mod.zero_degree_of(opt_state)
+        if n_saved != n_want:
+            print(f"Resharding optimizer state: ZeRO degree {n_saved} -> "
+                  f"{n_want}")
+            opt_state = zero_mod.zero_reshard(optimizer, opt_state, n_want,
+                                              n_old=n_saved)
+        if zero is not None:
+            opt_state = zero_mod.local_optimizer_state(zero, opt_state)
+        optimizer.load_state_dict(opt_state)
     schedule = cosine_annealing_lr(config.learning_rate, config.max_iters,
                                    warmup=config.warmup_epochs)
     mean = config.mean if config.apply_mean_std else None
@@ -283,14 +348,18 @@ def _train(config: Config, max_steps: Optional[int], device) -> dict:
         remat=int(config.remat),
         augment=Augment(flip=config.augment_flip, crop=config.augment_crop,
                         brightness=config.augment_brightness),
-        ema=ema, ema_decay=config.ema_decay, input_size=config.input_size)
+        ema=ema, ema_decay=config.ema_decay, input_size=config.input_size,
+        zero=zero)
     eval_step = make_eval_step(model, config.criterion, policy, mean, std,
                                device, input_size=config.input_size)
 
     train_ds, val_ds = _make_datasets(config)
     batch, accum = config.batch_size, config.grad_accum_steps
+    # past one rank every batch pads to max_frames: one shape on all ranks
     loader_kw = dict(num_workers=config.num_workers,
-                     t_bucket=config.t_bucket, max_frames=config.max_frames)
+                     t_bucket=(config.max_frames if n_ranks > 1
+                               else config.t_bucket),
+                     max_frames=config.max_frames)
     train_loader = DataLoader(train_ds, batch, shuffle=True,
                               seed=config.seed, drop_last=True,
                               temporal_jitter=config.temporal_jitter,
@@ -298,10 +367,14 @@ def _train(config: Config, max_steps: Optional[int], device) -> dict:
     # the whole val set: the tail batch is padded and masked in eval_step
     val_loader = DataLoader(val_ds, batch, shuffle=False, drop_last=False,
                             **loader_kw)
+    # the ranks' shards can differ by a batch: all take the smallest count
+    n_train = mesh.min_int(len(train_loader)) if n_ranks > 1 else None
     print(f"Using {accum} gradient accumulation steps for a total effective "
-          f"batch size of {config.effective_batch_size}")
+          f"batch size of {config.effective_batch_size}"
+          + (f" per replica, {n_ranks} replicas" if n_ranks > 1 else ""))
 
-    writer = SummaryWriter(os.path.join(config.log_dir, config.run_name()))
+    writer = (SummaryWriter(os.path.join(config.log_dir, config.run_name()))
+              if is_main else _NoWriter())
     os.makedirs(config.checkpoint_dir, exist_ok=True)
     final_path = os.path.join(config.checkpoint_dir,
                               f"{config.run_name()}_finished.pth")
@@ -323,34 +396,57 @@ def _train(config: Config, max_steps: Optional[int], device) -> dict:
     snapshots = ckpt.SnapshotWriter()
 
     def save(directory, epoch, minor=None, block=None):
-        payload = ckpt.snapshot(
-            model, optimizer, ema, state_epoch,
-            [global_step, supers_in_epoch],
-            [best_val_loss, patience_baseline, evals_since_improve])
-        snapshots.save(directory, epoch, payload,
-                       block=(not config.async_checkpoint
-                              if block is None else block), minor=minor)
+        # under ZeRO the snapshot is a collective; rank 0 writes it
+        block = not config.async_checkpoint if block is None else block
+        if is_main or zero is not None:
+            payload = ckpt.snapshot(
+                model, optimizer, ema, state_epoch,
+                [global_step, supers_in_epoch],
+                [best_val_loss, patience_baseline, evals_since_improve],
+                zero=zero)
+        if is_main:
+            snapshots.save(directory, epoch, payload, block=block,
+                           minor=minor)
+        if block:
+            mesh.barrier()
+
+    def prune(fn, directory, keep):
+        if is_main:
+            fn(directory, keep=keep)
+
+    ncls = 2 if config.criterion == "BCE" else config.num_classes
 
     def run_eval():
-        tot_loss, tot_correct, tot_n, tot_conf = 0.0, 0.0, 0.0, None
+        tot_loss, tot_correct, tot_n = 0.0, 0.0, 0.0
+        tot_conf = np.zeros((ncls, ncls))
         print("Evaluating...")
         # the EMA weights are scored, with the live BatchNorm statistics
         live = None
-        if ema is not None:
-            live = {n: p.detach().clone()
-                    for n, p in model.named_parameters()}
-            _load_params(model, ema)
-        try:
-            for feats, labels in val_loader:
-                out = eval_step(*_pad_val_batch(feats, labels, batch))
-                tot_loss += out["loss_sum"]
-                tot_correct += out["correct"]
-                tot_n += out["samples"]
-                conf = out["confusion"].astype(np.float64)
-                tot_conf = conf if tot_conf is None else tot_conf + conf
-        finally:
-            if live is not None:
-                _load_params(model, live)
+        with zero_mod.gathered(zero):
+            if ema is not None:
+                live = {n: p.detach().clone()
+                        for n, p in model.named_parameters()}
+                _load_params(model, ema if zero is None or zero.stage == 1
+                             else zero_mod.zero3_unshard_params(
+                                 zero, [ema[k] for k in zero.names]))
+            try:
+                for feats, labels in val_loader:
+                    out = eval_step(*_pad_val_batch(feats, labels, batch))
+                    tot_loss += out["loss_sum"]
+                    tot_correct += out["correct"]
+                    tot_n += out["samples"]
+                    tot_conf += out["confusion"]
+            finally:
+                if live is not None:
+                    _load_params(model, live)
+        if n_ranks > 1:
+            # every rank's sums (a rank's own shard of the val set)
+            sums = torch.tensor(
+                [tot_loss, tot_correct, tot_n, *tot_conf.ravel()],
+                dtype=torch.float64, device=device)
+            sums = mesh.all_reduce_sum_(sums).cpu().numpy()
+            tot_loss, tot_correct, tot_n = (float(v) for v in sums[:3])
+            tot_conf = sums[3:].reshape(ncls, ncls)
         if tot_n == 0:
             return float("nan"), float("nan"), 0.0, None
         return tot_loss / tot_n, tot_correct / tot_n, tot_n, tot_conf
@@ -370,8 +466,11 @@ def _train(config: Config, max_steps: Optional[int], device) -> dict:
             if epoch == start_epoch and resume_skip:
                 train_loader.skip(resume_skip * accum)
                 supers_in_epoch = resume_skip
-            for feats, labels in accumulate_batches(iter(train_loader),
-                                                    accum):
+            feed = accumulate_batches(iter(train_loader), accum)
+            if n_train is not None:
+                feed = itertools.islice(
+                    feed, max(0, n_train // accum - supers_in_epoch))
+            for feats, labels in feed:
                 m = train_step(epoch, feats, labels, global_step)
                 losses = m["loss"].cpu().numpy()
                 corrects = m["correct"].cpu().numpy()
@@ -397,7 +496,7 @@ def _train(config: Config, max_steps: Optional[int], device) -> dict:
                         config.checkpoint_every_steps == 0:
                     # step_<epoch>_<n>, keep-1 before saving: at most two
                     # mid-epoch snapshots on disk
-                    ckpt.prune_midepoch(snap_dir, keep=1)
+                    prune(ckpt.prune_midepoch, snap_dir, 1)
                     save(snap_dir, epoch, minor=supers_in_epoch)
                 if max_steps is not None and steps_this_run >= max_steps:
                     break
@@ -417,10 +516,12 @@ def _train(config: Config, max_steps: Optional[int], device) -> dict:
                 tl = train_losses_hist[-1] if train_losses_hist \
                     else float("nan")
                 ta = train_acc_hist[-1] if train_acc_hist else float("nan")
-                print(f"Step {epoch}: Train Loss: {tl:.4f}, "
-                      f"Val Loss: {val_loss:.4f}")
-                print(f"Step {epoch}: Train Accuracy: {ta * 100:.2f}%, "
-                      f"Val Accuracy: {val_acc * 100:.2f}%")
+                if is_main:
+                    print(f"Step {epoch}: Train Loss: {tl:.4f}, "
+                          f"Val Loss: {val_loss:.4f}")
+                    print(f"Step {epoch}: Train Accuracy: "
+                          f"{ta * 100:.2f}%, Val Accuracy: "
+                          f"{val_acc * 100:.2f}%")
                 writer.add_scalar("val loss", val_loss, epoch)
                 writer.add_scalar("val accuracy", val_acc, epoch)
                 # best and patience move before the epoch's snapshot, so
@@ -437,13 +538,14 @@ def _train(config: Config, max_steps: Optional[int], device) -> dict:
                 best_val_loss = track_best(best_val_loss, val_loss)
                 save(snap_dir, epoch)
                 if config.checkpoint_every_steps:
-                    ckpt.prune_midepoch(snap_dir, keep=1)
+                    prune(ckpt.prune_midepoch, snap_dir, 1)
                 if config.keep_checkpoints:
-                    ckpt.prune_epochs(snap_dir, keep=config.keep_checkpoints)
+                    prune(ckpt.prune_epochs, snap_dir,
+                          config.keep_checkpoints)
                 if improved_best and config.save_best:
                     best_dir = os.path.join(config.checkpoint_dir,
                                             f"{config.model_name}_best")
-                    ckpt.prune_epochs(best_dir, keep=1)
+                    prune(ckpt.prune_epochs, best_dir, 1)
                     save(best_dir, epoch)
                 if config.early_stop_patience and \
                         evals_since_improve >= config.early_stop_patience:
@@ -455,8 +557,10 @@ def _train(config: Config, max_steps: Optional[int], device) -> dict:
             elapsed = time.time() - start_time
             done = epoch - start_epoch + 1
             remaining = (config.max_iters - epoch - 1) * elapsed / done
-            print(f"Iter [{epoch + 1}/{config.max_iters}] - Elapsed Time: "
-                  f"{elapsed:.2f}s - Remaining Time: [{remaining:.2f}]")
+            if is_main:
+                print(f"Iter [{epoch + 1}/{config.max_iters}] - Elapsed "
+                      f"Time: {elapsed:.2f}s - Remaining Time: "
+                      f"[{remaining:.2f}]")
             if max_steps is not None:
                 break
     except KeyboardInterrupt:
@@ -470,13 +574,17 @@ def _train(config: Config, max_steps: Optional[int], device) -> dict:
         save(os.path.join(config.checkpoint_dir,
                           f"{config.run_name()}_finished"), state_epoch,
              block=True)
-        torch.save({k: v.detach().cpu() for k, v in
-                    model.state_dict().items()}, final_path)
-        _save_statistics(config.run_name(), train_losses_hist,
-                         train_acc_hist, val_losses, val_percent,
-                         summary.get("val_confusion"))
+        with zero_mod.gathered(zero):
+            weights = {k: v.detach().cpu() for k, v in
+                       model.state_dict().items()}
+        if is_main:
+            torch.save(weights, final_path)
+            _save_statistics(config.run_name(), train_losses_hist,
+                             train_acc_hist, val_losses, val_percent,
+                             summary.get("val_confusion"))
+            print(f"Model saved to {final_path}")
         writer.close()
-        print(f"Model saved to {final_path}")
+        mesh.barrier()
 
     summary.update(
         final_train_loss=train_losses_hist[-1] if train_losses_hist

@@ -21,6 +21,13 @@ Counterpart of ``picklebot_tpu/train/optim.py``, with the same semantics:
 
 The update runs on the parameters' device as a few elementwise torch ops
 per tensor; it is not a kernel of the JAX package (XLA fuses it there).
+
+Under ZeRO (``parallel/zero.py``) an optimizer is built on each rank's
+flat (chunk,) slices of the parameters, as the JAX package inits on
+(chunk,) prototypes: ``quantizes`` and the 256-blocks are then decided
+per chunk. Its ``state_dict`` holds that rank's slices; the snapshot
+stacks the ranks' into the JAX package's (n, chunk) layout
+(``zero.gather_optimizer_state``).
 """
 
 from __future__ import annotations
@@ -127,6 +134,10 @@ class AdamW:
         self.m = [self._init_moment(p, signed=True) for p in self.params]
         self.v = [self._init_moment(p, signed=False) for p in self.params]
 
+    def quantizes(self, numel: int) -> bool:
+        """Whether a tensor of ``numel`` elements keeps 8-bit moments."""
+        return False
+
     def _init_moment(self, p, signed: bool):
         return torch.zeros_like(p, dtype=torch.float32)
 
@@ -196,8 +207,11 @@ class AdamW8bit(AdamW):
         super().__init__(params, betas=betas, eps=eps,
                          weight_decay=weight_decay)
 
+    def quantizes(self, numel: int) -> bool:
+        return numel >= self.min_8bit_size
+
     def _init_moment(self, p, signed: bool):
-        if p.numel() < self.min_8bit_size:
+        if not self.quantizes(p.numel()):
             return super()._init_moment(p, signed)
         blocks = -(-p.numel() // BLOCK)
         codes = torch.full((blocks, BLOCK), _SIGNED_ZERO if signed else 0,

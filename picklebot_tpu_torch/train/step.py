@@ -1,8 +1,8 @@
 """Train, eval and inference steps: uint8 clips or images -> loss,
 metrics, logits.
 
-Counterpart of ``preprocess``, ``make_train_step`` (single device),
-``make_eval_step`` and ``make_predict_fn`` in
+Counterpart of ``preprocess``, ``make_train_step``, ``make_eval_step``,
+``make_predict_fn`` and ``make_sharded_predict_fn`` in
 ``picklebot_tpu/train/step.py``. A train step takes a whole effective
 batch (A microbatches): per microbatch, preprocess -> train-mode forward
 (BatchNorm running statistics advance) -> loss -> backward, the gradients
@@ -21,9 +21,29 @@ position), ``remat`` (``core/remat.py``), an EMA of the parameters after
 every update, and frozen parameters (``train/freeze.py``: a parameter
 that does not require grad has no gradient, no update and no part in the
 clip norm).
+
+Data parallelism (the JAX step under its 'data' mesh axis): when a
+``torch.distributed`` process group exists (``parallel/mesh.py``), each
+rank runs its own share of the batch, BatchNorm takes its batch
+statistics from that share alone (per-replica BatchNorm, as DDP), and
+after the last microbatch one flat f32 all-reduce averages the summed
+gradients (the sum, then / world: the JAX ``pmean``); the BatchNorm
+running means and variances are averaged too, the per-microbatch losses
+averaged and the correct counts and samples summed over the ranks; the
+clip works on the averaged gradients. With more than one rank the rank is
+folded into the dropout and augmentation seeds (the JAX step folds
+``axis_index('data')`` into its key); at world 1 the seeds are those of a
+run without a group. No ``DistributedDataParallel``: it would all-reduce
+every microbatch and broadcast rank 0's buffers where the JAX package
+averages them. ``zero`` (a ``parallel.zero.ZeroLayout``) replaces the
+gradient all-reduce by ZeRO's reduce-scatter, sliced update and (stage 1)
+all-gather; at stage 3 the step gathers the parameters first and
+releases them after, and the EMA lives in the rank's chunks.
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -33,6 +53,8 @@ from picklebot_tpu_torch.core.remat import apply_remat
 from picklebot_tpu_torch.data.augment import apply_augment, draw_augment
 from picklebot_tpu_torch.ops.linear import dropout_rng
 from picklebot_tpu_torch.ops.resize import resize_frames
+from picklebot_tpu_torch.parallel import mesh
+from picklebot_tpu_torch.parallel import zero as zero_mod
 from picklebot_tpu_torch.train.losses import (LOSSES, LOSSES_PER_SAMPLE,
                                               prepare_labels, smoothed_bce,
                                               smoothed_cross_entropy)
@@ -76,6 +98,39 @@ def make_predict_fn(model, policy: DtypePolicy = None, mean=None, std=None,
     return predict
 
 
+def make_sharded_predict_fn(model, devices, policy: DtypePolicy = None,
+                            mean=None, std=None, input_size=None):
+    """Data-parallel inference over ``devices`` (e.g. ``["cuda:0",
+    "cuda:1"]``): one eval-mode replica of ``model`` per listed device (a
+    device may be listed twice); a batch is zero-padded to a multiple of
+    their number, split in equal chunks, each chunk run on its replica
+    (every replica's kernels launched before any result is read), and the
+    logits concatenated and trimmed to the batch. Same contract as
+    ``make_predict_fn``."""
+    policy = policy or DtypePolicy.bf16()
+    devices = [torch.device(d) for d in devices]
+    replicas = [copy.deepcopy(model).to(d).eval() for d in devices]
+
+    def predict(features: np.ndarray) -> np.ndarray:
+        b, n = features.shape[0], len(replicas)
+        pad = (-b) % n
+        if pad:
+            features = np.concatenate(
+                [features, np.zeros((pad,) + features.shape[1:],
+                                    features.dtype)])
+        outs = []
+        with torch.inference_mode(), policy.precision():
+            for rep, dev, chunk in zip(replicas, devices,
+                                       np.split(features, n)):
+                x = torch.from_numpy(np.ascontiguousarray(chunk)).to(dev)
+                x = preprocess(x, policy.compute_dtype, mean, std,
+                               input_size)
+                outs.append(rep(x).float())
+            return np.concatenate([o.cpu().numpy() for o in outs])[:b]
+
+    return predict
+
+
 def _micro_seed(seed: int, position: int) -> int:
     return (seed * 1_000_003 + position) % 2 ** 63
 
@@ -92,7 +147,7 @@ def make_train_step(model, optimizer, criterion: str, schedule,
                     max_grad_norm=None, label_smoothing: float = 0.0,
                     seed: int = 0, device="cuda", remat: int = 0,
                     augment=None, ema=None, ema_decay: float = 0.0,
-                    input_size=None):
+                    input_size=None, zero=None, data_parallel=None):
     """step(epoch, features, labels, position=0) -> metrics, with features
     (A, B, T, H, W, C) uint8 clips or (A, B, H, W, C) images and labels
     (A, B) (numpy or tensors) and
@@ -109,7 +164,15 @@ def make_train_step(model, optimizer, criterion: str, schedule,
     ``ema`` ({name: f32 tensor}, from ``ema_init``) is updated in place
     after every optimizer step, ema = d * ema + (1 - d) * p in f32, with
     d = ``ema_decay``. ``input_size`` resizes each microbatch's frames
-    in ``preprocess``, before the augmentation."""
+    in ``preprocess``, before the augmentation.
+
+    Under a process group the features are this rank's share and the
+    metrics the replicas' (``loss`` averaged, ``correct`` and ``samples``
+    summed). ``zero``: a ``parallel.zero.ZeroLayout`` over ``model``,
+    with ``optimizer`` built on its slices (``zero.zero_optimizer``); at
+    stage 3 ``ema`` holds the rank's chunks, {name: (chunk,) f32}.
+    ``data_parallel=False`` runs this process alone even under a group
+    (the bench's measurement, which the autotuner makes on rank 0 only)."""
     policy = policy or DtypePolicy.bf16()
     device = torch.device(device)
     if remat:
@@ -119,8 +182,20 @@ def make_train_step(model, optimizer, criterion: str, schedule,
         raise ValueError("ema_decay > 0 needs the EMA weights: pass "
                          "ema=ema_init(model)")
     d = np.float32(ema_decay)
-    ema_pairs = ([(ema[n], p) for n, p in model.named_parameters()]
-                 if ema_decay > 0 else [])
+    stage3 = zero is not None and zero.stage == 3
+    ema_pairs = []
+    if ema_decay > 0:
+        ema_pairs = ([(ema[n], s) for n, s in zip(zero.names, zero.shards)]
+                     if stage3 else
+                     [(ema[n], p) for n, p in model.named_parameters()])
+    dp = mesh.distributed() if data_parallel is None else data_parallel
+    n_ranks = mesh.world() if dp else 1
+    # the rank folded into the seeds only past one replica: at world 1 the
+    # dropout and augmentation draws are those of a run without a group
+    key_seed = (seed if n_ranks == 1
+                else _micro_seed(seed, -1 - mesh.rank()))
+    statistics = [b for k, b in model.named_buffers()
+                  if k.endswith((".running_mean", ".running_var"))]
     loss_fn, acc_fn = LOSSES[criterion]
     if label_smoothing > 0.0:
         loss_fn = (smoothed_cross_entropy(label_smoothing) if criterion == "CE"
@@ -132,6 +207,8 @@ def make_train_step(model, optimizer, criterion: str, schedule,
         lr = schedule(epoch)
         feats, lbls = torch.as_tensor(features), torch.as_tensor(labels)
         model.train()
+        if stage3:
+            zero_mod.zero3_gather_params(zero)
         for p in params:
             p.grad = None
         losses, corrects = [], []
@@ -144,10 +221,10 @@ def make_train_step(model, optimizer, criterion: str, schedule,
                     x = preprocess(feats[i].to(device), policy.compute_dtype,
                                    input_size=input_size)
                     x = apply_augment(x, draw_augment(
-                        aug, x.shape[0], seed, position + i), aug.crop)
+                        aug, x.shape[0], key_seed, position + i), aug.crop)
                     x = standardize(x, mean, std)
                 lbl = prepare_labels(criterion, lbls[i].to(device))
-                generator.manual_seed(_micro_seed(seed, position + i))
+                generator.manual_seed(_micro_seed(key_seed, position + i))
                 with dropout_rng(generator):
                     logits = model(x)
                 loss = loss_fn(logits, lbl)
@@ -156,23 +233,55 @@ def make_train_step(model, optimizer, criterion: str, schedule,
                 corrects.append(acc_fn(logits.detach(), lbl))
             metrics = {"loss": torch.stack(losses),
                        "correct": torch.stack(corrects),
-                       "samples": float(feats.shape[0] * feats.shape[1]),
+                       "samples": float(feats.shape[0] * feats.shape[1]
+                                        * n_ranks),
                        "lr": lr}
-            if max_grad_norm is not None:
-                norm = torch.sqrt(sum(p.grad.float().pow(2).sum()
-                                      for p in params if p.grad is not None))
-                scale = torch.clamp(max_grad_norm / (norm + 1e-6), max=1.0)
-                for p in params:
-                    if p.grad is not None:
-                        p.grad.mul_(scale)
-                metrics["grad_norm"] = norm
-            optimizer.step(lr)
+            if dp:
+                _reduce_replicas(metrics, statistics, n_ranks)
+            if zero is not None:
+                update = (zero_mod.zero3_update if stage3
+                          else zero_mod.zero_update)
+                norm = update(zero, optimizer, lr, max_grad_norm)
+                if norm is not None:
+                    metrics["grad_norm"] = norm
+            else:
+                if dp:
+                    for p in params:
+                        if p.grad is None:
+                            p.grad = torch.zeros_like(p)
+                    mesh.all_reduce_mean_([p.grad for p in params])
+                if max_grad_norm is not None:
+                    norm = torch.sqrt(sum(
+                        p.grad.float().pow(2).sum()
+                        for p in params if p.grad is not None))
+                    scale = torch.clamp(max_grad_norm / (norm + 1e-6),
+                                        max=1.0)
+                    for p in params:
+                        if p.grad is not None:
+                            p.grad.mul_(scale)
+                    metrics["grad_norm"] = norm
+                optimizer.step(lr)
             with torch.no_grad():
                 for e, p in ema_pairs:
                     e.mul_(float(d)).add_(p.float() * float(1 - d))
+            if stage3:
+                zero_mod.zero3_release_params(zero)
         return metrics
 
     return step
+
+
+def _reduce_replicas(metrics, statistics, n_ranks):
+    """The replicas' metrics and BatchNorm running statistics, in place:
+    losses averaged and correct counts summed (one all-reduce), running
+    means and variances averaged (one more)."""
+    a = metrics["loss"].numel()
+    both = torch.cat([metrics["loss"].float(), metrics["correct"].float()])
+    mesh.all_reduce_sum_(both)
+    metrics["loss"] = both[:a] / n_ranks
+    metrics["correct"] = both[a:].to(metrics["correct"].dtype)
+    with torch.no_grad():
+        mesh.all_reduce_mean_(statistics)
 
 
 def make_eval_step(model, criterion: str, policy: DtypePolicy = None,

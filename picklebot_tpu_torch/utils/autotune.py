@@ -29,9 +29,11 @@ are cuDNN's already.
     apply (None: leave it); ``train()`` sets it for the run and restores
     it after (``cudnn_benchmark``).
 
-Multi-process runs: the JAX package measures on process 0 and broadcasts
-the winner; that waits for the port's data parallelism (ROADMAP.md,
-queue A, item A18). The port trains in one process.
+Data-parallel runs (a ``torch.distributed`` group, ``parallel/mesh.py``):
+rank 0 alone measures and broadcasts the index of its winner in
+``candidates()``, so that every rank runs the same flag; if its search
+raises, it broadcasts -1 instead, and every rank raises (rank 0 its own
+error) rather than leave the others waiting in a collective.
 
 CLI: ``python -m picklebot_tpu_torch.utils.autotune <config.json> [--mode
 infer] [--batch N --frames T --size S] [--device cpu]`` prints each
@@ -231,10 +233,25 @@ def autotune_config(config, mode: str = "train", device="cuda", **kw):
     ``cudnn.benchmark`` value to apply, or None to leave the flag).
     ``varying_input_size`` skips the search and leaves the flag, as the
     reference leaves cudnn.benchmark off for it."""
+    from picklebot_tpu_torch.parallel import mesh
     tuned = dataclasses.replace(config, autotune=False)
     if config.varying_input_size:
         return tuned, None
-    return tuned, autotune(config, mode, device=device, **kw)
+    if mesh.world() == 1:
+        return tuned, autotune(config, mode, device=device, **kw)
+    cands, idx, err = candidates(), -1, None
+    if mesh.is_main():
+        try:
+            idx = cands.index(autotune(config, mode, device=device, **kw))
+        except Exception as e:  # noqa: BLE001 -- raised after the broadcast
+            err = e
+    idx = mesh.broadcast_int(idx)
+    if idx < 0:
+        if err is not None:
+            raise err
+        raise RuntimeError("autotune failed on rank 0 (see its log); "
+                           f"aborting on rank {mesh.rank()}")
+    return tuned, cands[idx]
 
 
 def main(argv=None):

@@ -567,11 +567,39 @@ def test_serve_stream_rejects_server_flags(setup, capsys, flags, message):
     assert message in capsys.readouterr().err
 
 
-def test_serve_data_parallel_names_its_roadmap_item(setup):
+def test_serve_data_parallel_names_the_cards_it_found(setup, capsys):
+    """More cards than the machine has (at least 2): a non-zero exit
+    naming the count found, never a serve on fewer."""
     cfg, pth, _ = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP.*A18"):
-        serve.main([cfg, "--checkpoint", pth, "--data-parallel", "2",
-                    "--csv", "x", "--device", "cpu"])
+    found = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    n = max(found + 1, 2)
+    rc = serve.main([cfg, "--checkpoint", pth, "--data-parallel", str(n),
+                     "--csv", "x"])
+    assert rc == 1
+    assert f"--data-parallel {n} needs {n} CUDA cards; found {found}" in \
+        capsys.readouterr().err
+
+
+def test_serve_data_parallel_on_cpu_replicas_matches_one(setup, capsys):
+    """--data-parallel 3 --device cpu: a batch of 4 (ragged over 3
+    replicas) gives the records of the unsharded server."""
+    cfg, pth, _ = setup
+    outs = []
+    for extra in ([], ["--data-parallel", "3"]):
+        assert serve.main([cfg, "--checkpoint", pth, "--csv", "x",
+                           "--limit", "4", "--batch", "4", "--device",
+                           "cpu"] + extra) == 0
+        outs.append([json.loads(line) for line in
+                     capsys.readouterr().out.strip().splitlines()])
+    one, sharded = outs
+    assert len(one) == len(sharded) == 5
+    for a, b in zip(one, sharded):
+        assert a.keys() == b.keys()
+        for key in a:
+            if isinstance(a[key], float):
+                assert abs(a[key] - b[key]) <= 1e-5, key
+            else:
+                assert a[key] == b[key], key
 
 
 def test_serve_data_parallel_refuses_the_stream_model(tmp_path, capsys):

@@ -51,7 +51,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 "core.remat", "data.augment", "train.freeze",
                 "train.checkpoint", "export", "ops.resize", "ops.library",
                 "data.native", "utils.summary", "utils.profiling",
-                "utils.autotune", "utils.build"):
+                "utils.autotune", "utils.build", "parallel.mesh",
+                "parallel.zero"):
         assert f"picklebot_tpu_torch.{mod}" in res["modules"]
     assert res["launches"] == {"pool": 0, "main": 0}
     assert res["flash_launches"] == {"packed": 0, "heads": 0, "dq": 0,
@@ -77,6 +78,6 @@ def test_unported_model_points_to_roadmap():
     from picklebot_tpu_torch.train.loop import train
     from picklebot_tpu_torch.utils.config import Config
     with pytest.raises(NotImplementedError,
-                       match="data_parallel.*ROADMAP.*A18"):
-        train(Config(model_name="MobileNetLarge3D", data_parallel=2),
+                       match="model_parallel.*ROADMAP.*A20"):
+        train(Config(model_name="MobileNetLarge3D", model_parallel=2),
               device="cpu")
