@@ -11,10 +11,13 @@
     python3 chip_smoke.py --only surface       # resize, export, HTTP
     python3 chip_smoke.py --only tooling       # native I/O, the CLI's tools
     python3 chip_smoke.py --only dp            # data parallelism and ZeRO
+    python3 chip_smoke.py --only layouts       # tensor and sequence
+                                               # parallelism on MobileViT-s
     python3 chip_smoke.py --only kernels serve # or any of kernels, fused,
                                                # conv, flash, serve, train,
                                                # trainx, timing, stream, v2,
-                                               # bench, surface, tooling, dp
+                                               # bench, surface, tooling,
+                                               # dp, layouts
     python3 chip_smoke.py --ab-forward DIR     # Large3D's eager forward of
                                                # the tree at DIR and of this
                                                # one, in turns
@@ -207,7 +210,26 @@ kernels summary):
               unsharded predictor (the serve bound; 8 pool and 15 main
               launches per replica call); serve --data-parallel 2 exiting
               non-zero and naming the one card found
- 14. summary  the collates of the whole run (none on numpy), {"kernels":
+ 14. layouts  tensor and sequence parallelism on the one card, MobileViT-s
+              at full width (seed 0, one bs-8 microbatch of the train
+              phase's 32x224x224 clips a step, 2 steps, lr 3e-4, the
+              global-norm clip at 1.0): two processes of this script
+              sharing the card over gloo (--layout-rank), laid out as the
+              mesh model 2 and then seq 2, each in f32 (TF32 off, AdamW)
+              and bf16 (AdamW8bit), against the same steps in one process
+              on the card: f32 losses and first-step gradients within 1e-5
+              of max|ref| (bit equality recorded, not expected), weights
+              within Adam's bound, bf16 losses within the train bounds;
+              the ranks' weights equal; every rank's launches of rows 2,
+              3, 4 and 7 exact (at seq 2 stages 1 and 3 run ring attention
+              and only stage 2's 4 layers launch the flash kernels);
+              collective counts and bytes per step by kind against the
+              figures from the shapes; ring attention at the stage-1 and
+              stage-3 shapes against the plain attention, forward and
+              gradients, f32 and bf16; the TP run's .pth loaded strictly
+              in one process and served (exact launches). The 4-rank
+              model 2 x seq 2 run is left to the CPU tests
+ 15. summary  the collates of the whole run (none on numpy), {"kernels":
               [...]}, the card line, and last {"ok": true, "device": ...}
 Per-shape numbers also go to chiprun_out/chip_smoke.json. Without CUDA it
 exits with code 2 and prints no result. Imports nothing of JAX.
@@ -446,9 +468,40 @@ DP_JOBS = (("dp_f32", 0, "f32", "adamw"), ("z1_f32", 1, "f32", "adamw"),
            ("z3_bf16", 3, "bf16", "adamw8bit"))
 DP_F32_REL_TOL = 1e-5
 DP_RANK_TIMEOUT = 240
+# the layouts phase: MobileViT-s at full width (seed 0) over two
+# processes of this script sharing the card over gloo, laid out as the
+# mesh of each of LAYOUT_MODES, LAYOUT_STEPS steps of one bs-8 microbatch
+# (the train phase's synthetic clips) at lr LAYOUT_LR with the global-norm
+# clip at LAYOUT_CLIP, in each of LAYOUT_JOBS (name, dtype, optimizer),
+# against the same steps in one process on the card. f32 (TF32 off): the
+# first step's loss within LAYOUT_F32_REL_TOL; the model-2 run's
+# first-step gradients within LAYOUT_F32_REL_TOL of each tensor's max|ref|
+# of the one-process step that computes the FFN in the ranks' two slices
+# (``ffn_in_halves``: the same arithmetic, so bit equality is expected);
+# both layouts' gradients against the plain one-process step within
+# LAYOUT_FLOOR_FACTOR times the f32 floor that this run measures between
+# those two one-process steps (two reassociations of the same sums,
+# amplified through the train-mode BatchNorms: 2.5e-5 on a stem
+# BatchNorm's bias on an NVIDIA H100), and never tighter than
+# LAYOUT_F32_REL_TOL; the weights after each step within Adam's bound
+# (its first steps move a weight by about lr * sign(g), so a gradient at
+# noise level may flip: LAYOUT_ADAM_LRS * lr per step). bf16 (AdamW8bit):
+# the losses within TRAIN_LOSS_REL_TOL. The ranks' weights must be equal.
+LAYOUT_STEPS, LAYOUT_LR, LAYOUT_CLIP = 2, 3e-4, 1.0
+LAYOUT_JOBS = (("f32", "f32", "adamw"), ("bf16", "bf16", "adamw8bit"))
+LAYOUT_MODES = {"tp": {"model": 2}, "sp": {"seq": 2}}
+LAYOUT_F32_REL_TOL = 1e-5
+LAYOUT_ADAM_LRS = 2.0
+LAYOUT_FLOOR_FACTOR = 2.0
+LAYOUT_RANK_TIMEOUT = 240
+# MobileViT-s's transformer stages at bs 8: (N, embed width, FFN width
+# multiple, layers); 8 heads of 16; the collective figures of the layouts
+# phase follow from them
+VIT_STAGES = ((784, 144, 2, 2), (147, 192, 4, 4), (32, 240, 4, 3))
 # what --only can pick; with no --only every phase runs
 PHASES = ("kernels", "fused", "conv", "flash", "serve", "train", "trainx",
-          "timing", "stream", "v2", "bench", "surface", "tooling", "dp")
+          "timing", "stream", "v2", "bench", "surface", "tooling", "dp",
+          "layouts")
 
 
 def emit(obj):
@@ -1515,19 +1568,21 @@ def read_counters(counters):
     return {name: dict(c) for name, c in counters.items()}
 
 
-def serve_run(cfg, model, counters):
+def serve_run(cfg, model, counters, pth=None):
     """picklebot_tpu_torch.serve.main on 16 synthetic clips at --batch 8
-    from ``model``'s weights, with every launch counter set to 0 just
-    before it and read just after. Checks the predictions; returns the
-    launches and the wall time."""
+    from ``model``'s weights (or the ``.pth`` at ``pth``), with every
+    launch counter set to 0 just before it and read just after. Checks
+    the predictions; returns the launches and the wall time."""
     import torch
     from picklebot_tpu_torch import serve
     with tempfile.TemporaryDirectory() as tmp:
         cfg_path = os.path.join(tmp, "cfg.json")
         with open(cfg_path, "w") as f:
             json.dump(cfg, f)
-        pth = os.path.join(tmp, "weights.pth")
-        torch.save({k: v.cpu() for k, v in model.state_dict().items()}, pth)
+        if pth is None:
+            pth = os.path.join(tmp, "weights.pth")
+            torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+                       pth)
         zero_counters(counters)
         out = io.StringIO()
         t0 = time.perf_counter()
@@ -4354,6 +4409,462 @@ def phase_dp(counters):
     return res
 
 
+def layout_batch():
+    """LAYOUT_STEPS steps of one bs-8 microbatch: the train phase's
+    synthetic 32x224x224 clips and labels."""
+    from picklebot_tpu_torch.data.dataset import ClipDataset, pad_collate
+    n = 8 * LAYOUT_STEPS
+    ds = ClipDataset("", "", backend="synthetic",
+                     synthetic_shape=(32, 224, 224), synthetic_len=n)
+    items = [ds[i] for i in range(n)]
+    feats, labels = pad_collate([c for c, _ in items], [l for _, l in items],
+                                16, 128)
+    return (feats.reshape((LAYOUT_STEPS, 1, 8) + feats.shape[1:]),
+            np.asarray(labels).reshape(LAYOUT_STEPS, 1, 8))
+
+
+def layout_setup(dtype, optimizer, mode=None):
+    """MobileViT-s (seed 0) on the card with its train step: at the
+    mesh's axes for ``mode``, else the one-process model."""
+    import torch
+    from picklebot_tpu_torch.core.policy import DtypePolicy
+    from picklebot_tpu_torch.models.mobilevit import (MOBILEVIT_CONFIGS,
+                                                      MobileViT)
+    from picklebot_tpu_torch.train.optim import OPTIMIZERS
+    from picklebot_tpu_torch.train.step import make_train_step
+    axes = LAYOUT_MODES.get(mode, {})
+    model = MobileViT(num_classes=13, seed=0, **MOBILEVIT_CONFIGS["s"],
+                      model_axis="model" if "model" in axes else None,
+                      sequence_axis="seq" if "seq" in axes else None
+                      ).to("cuda")
+    policy = DtypePolicy.bf16() if dtype == "bf16" else DtypePolicy.f32()
+    opt = OPTIMIZERS[optimizer](model.parameters(), weight_decay=5e-4)
+    step = make_train_step(model, opt, "CE", lambda epoch: LAYOUT_LR, policy,
+                           max_grad_norm=LAYOUT_CLIP,
+                           device=torch.device("cuda"))
+    return model, step
+
+
+def layout_steps(model, step, feats, labels):
+    """LAYOUT_STEPS steps: per step the losses, the collectives (counted
+    from 0 for the step) and the full weights after it (the shards
+    gathered); the first step's gradients (gathered); host ms per step."""
+    import torch
+    from picklebot_tpu_torch.parallel import mesh
+    from picklebot_tpu_torch.parallel.megatron import gather_tensor, tp_dims
+    from picklebot_tpu_torch.train.checkpoint import full_state_dict
+    dims = tp_dims(model)
+    out = {"losses": [], "collectives": [], "states": [], "ms": []}
+    for s in range(LAYOUT_STEPS):
+        mesh.reset_counts()
+        t0 = time.perf_counter()
+        m = step(0, feats[s], labels[s], s)
+        torch.cuda.synchronize()
+        out["ms"].append(1e3 * (time.perf_counter() - t0))
+        out["collectives"].append(mesh.counts())
+        out["losses"].append(m["loss"].float().cpu())
+        if s == 0:
+            out["grads"] = {n: (gather_tensor(p.grad, dims[n]) if n in dims
+                                else p.grad).float().cpu().clone()
+                            for n, p in model.named_parameters()}
+        out["states"].append({k: v.detach().cpu().clone()
+                              for k, v in full_state_dict(model).items()})
+    return out
+
+
+def layout_collectives_want(mode, dtype, stack_params):
+    """The collectives of one train step (one bs-8 microbatch) at
+    ``mode``, worked out from VIT_STAGES: {kind: {count, bytes}} of the
+    kinds that occur. TP: each FFN's g all-reduces its (64, N, E) output
+    forward and f its input gradient backward, plus the clip's one
+    all-reduce of the 18 sharded leaves' f32 squares. SP at 2: a stage
+    whose N is even runs token-sharded: the exit's all-gather forward and
+    the entry's backward, each (64, N, E); per layer K and V one hop each
+    way, each (64, 8, N/2, 16); then one f32 all-reduce over 'seq' of
+    those stacks' ``stack_params`` parameter gradients."""
+    elt = 2 if dtype == "bf16" else 4
+    act = [64 * n * e * elt for n, e, _, _ in VIT_STAGES]
+    layers = [d for _, _, _, d in VIT_STAGES]
+    if mode == "tp":
+        n = sum(layers)
+        return {"all-reduce": {"count": 2 * n + 1,
+                               "bytes": sum(2 * d * a for d, a in
+                                            zip(layers, act)) + 4 * 2 * n}}
+    sp = [(n, d, a) for (n, _, _, d), a in zip(VIT_STAGES, act)
+          if n % 2 == 0]
+    return {"all-gather": {"count": 2 * len(sp),
+                           "bytes": sum(2 * a for _, _, a in sp)},
+            "collective-permute": {
+                "count": sum(4 * d for _, d, _ in sp),
+                "bytes": sum(4 * d * 64 * VIT_HEADS * (n // 2) * VIT_DHEAD
+                             * elt for n, d, _ in sp)},
+            "all-reduce": {"count": 1, "bytes": 4 * stack_params}}
+
+
+def sp_stack_params():
+    """The parameters of MobileViT-s's token-sharded stacks at seq 2 (the
+    stages whose N is even): per layer qkv (3*128, E), out (E, 128) and
+    the FFN's two (E*mult, E) weights."""
+    return sum(d * (4 * 128 * e + 2 * e * mult * e)
+               for n, e, mult, d in VIT_STAGES if n % 2 == 0)
+
+
+def layout_ring_checks(rank):
+    """Ring attention over 'seq' at MobileViT-s's stage-1 and stage-3
+    shapes (64 sequences, 8 heads of 16, N 784 and 32), forward and the
+    gradients of a weighted sum, each rank's block against the plain
+    attention (``sdpa``) of the whole sequence on the card: f32 (TF32
+    off) within LAYOUT_F32_REL_TOL of max|ref|, bf16 within the flash
+    bounds of bf16 ``sdpa``; CUDA-event times of both, forward and
+    backward."""
+    import torch
+    from picklebot_tpu_torch.core.policy import DtypePolicy
+    from picklebot_tpu_torch.ops.flash_attention import sdpa
+    from picklebot_tpu_torch.ops.ring_attention import ring_attention
+    out = {}
+    scale = VIT_DHEAD ** -0.5
+    for n in (784, 32):
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator().manual_seed(n)
+            q, k, v, w = (torch.randn(VIT_SEQS, VIT_HEADS, n, VIT_DHEAD,
+                                      generator=g).to("cuda", dtype)
+                          for _ in range(4))
+            blk = slice(rank * n // 2, (rank + 1) * n // 2)
+            with DtypePolicy.f32().precision():
+                full = [t.clone().requires_grad_(True) for t in (q, k, v)]
+                ref = sdpa(*full, scale)
+                (ref.float() * w.float()).sum().backward()
+                mine = [t[..., blk, :].clone().requires_grad_(True)
+                        for t in (q, k, v)]
+                got = ring_attention(*mine, "seq", scale)
+                (got.float() * w[..., blk, :].float()).sum().backward()
+                torch.cuda.synchronize()
+
+                def ring_step():
+                    parts = [t.detach().requires_grad_(True) for t in mine]
+                    o = ring_attention(*parts, "seq", scale)
+                    o.float().sum().backward()
+
+                def plain_step():
+                    parts = [t.detach().requires_grad_(True) for t in full]
+                    sdpa(*parts, scale).float().sum().backward()
+                ring_ms = time_ms(ring_step, reps=3)
+                plain_ms = time_ms(plain_step, reps=3)
+            name = f"ring N={n} {str(dtype)[6:]} rank {rank}"
+            pairs = [("out", got, ref[..., blk, :])] + [
+                (f"d{t}", mine[i].grad, full[i].grad[..., blk, :])
+                for i, t in enumerate("qkv")]
+            errs = {}
+            for label, a, b in pairs:
+                if dtype == torch.float32:
+                    err, mx = check_close(f"{name} {label}", a, b,
+                                          LAYOUT_F32_REL_TOL)
+                    errs[label] = {"max_abs_err": err, "max_ref": mx}
+                else:
+                    errs[label] = check_bf16_flash(f"{name} {label}", a, b)
+            out[f"{n}_{str(dtype)[6:]}"] = {
+                "errors": errs, "ring_fwd_bwd_ms": ring_ms,
+                "plain_fwd_bwd_ms": plain_ms}
+    return out
+
+
+def layout_rank_main(args):
+    """One rank of the layouts phase (``--layout-rank``): gloo on cuda:0,
+    the mesh of ``--layout-mode``, each of LAYOUT_JOBS under
+    deterministic algorithms; at 'sp' also the ring checks. Rank 0 saves
+    the runs (and at 'tp' the f32 run's full weights as a .pth)."""
+    import hashlib
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    from picklebot_tpu_torch.parallel import mesh
+    rank, mode = args.layout_rank, args.layout_mode
+    mesh.init_distributed(f"localhost:{args.dp_port}", backend="gloo",
+                          device="cuda:0", rank=rank, world_size=2)
+    mesh.init_mesh(**LAYOUT_MODES[mode])
+    counters = all_counters()
+    feats, labels = layout_batch()
+    results = {}
+    with deterministic():
+        for name, dtype, optimizer in LAYOUT_JOBS:
+            torch.cuda.reset_peak_memory_stats()
+            model, step = layout_setup(dtype, optimizer, mode)
+            zero_counters(counters)
+            run = layout_steps(model, step, feats, labels)
+            launches = read_counters(counters)
+            digest = hashlib.sha256()
+            for k in sorted(run["states"][-1]):
+                digest.update(run["states"][-1][k].numpy().tobytes())
+            if rank == 0:
+                torch.save(run, os.path.join(args.dp_out,
+                                             f"{mode}_{name}.pt"))
+                if mode == "tp" and dtype == "f32":
+                    torch.save(run["states"][-1],
+                               os.path.join(args.dp_out, "tp.pth"))
+            results[name] = {
+                "launches": launches, "digest": digest.hexdigest(),
+                "engaged": [n for n, m in model.named_modules()
+                            if getattr(m, "sp_engaged", False)],
+                "step_ms_host": run["ms"],
+                "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                "local_params": sum(p.numel() for p in model.parameters()),
+                "collectives": run["collectives"]}
+            del model, step, run
+            torch.cuda.empty_cache()
+    if mode == "sp":
+        results["ring"] = layout_ring_checks(rank)
+    with open(os.path.join(args.dp_out, f"{mode}_rank{rank}.json"),
+              "w") as f:
+        json.dump(results, f)
+    print(json.dumps({"layout_rank": rank, "mode": mode}))
+    dist.destroy_process_group()
+    return 0
+
+
+def layout_spawn(mode, out_dir, timeout):
+    """The two processes of ``mode`` (``--layout-rank``): outputs and exit
+    codes; each killed past ``timeout`` seconds."""
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--layout-rank", str(r),
+         "--layout-mode", mode, "--dp-port", str(port), "--dp-out", out_dir],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=ROOT) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=timeout)[0])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                outs.append(p.communicate()[0] + "\n[killed: timeout]")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs, [p.returncode for p in procs]
+
+
+@contextlib.contextmanager
+def ffn_in_halves(n=2):
+    """Within the block every MobileViT FeedForward computes its hidden
+    width in ``n`` slices, as the 'model' ranks do, and adds their
+    outputs (the all-reduce's sum of two is one add): the tensor-parallel
+    step's arithmetic in one process, to tell a fault of the layout from
+    f32 reassociation. A patch inside this script; the port has no such
+    switch."""
+    import torch.nn.functional as F
+    from picklebot_tpu_torch.models.mobilevit import FeedForward
+    saved = FeedForward.forward
+
+    def forward(self, x):
+        xv = x.view_as(x)    # as tp_copy_in: the slices' dx meet here
+        w0, w3 = self.net[0].weight, self.net[3].weight
+        h = w0.shape[0] // n
+        parts = [F.linear(self.net[2](self.net[1](F.linear(
+            xv, w0[r * h:(r + 1) * h].to(x.dtype)))),
+            w3[:, r * h:(r + 1) * h].contiguous().to(x.dtype))
+            for r in range(n)]
+        return self.net[4](sum(parts[1:], parts[0]))
+    FeedForward.forward = forward
+    try:
+        yield
+    finally:
+        FeedForward.forward = saved
+
+
+def layout_reference(dtype, optimizer, feats, labels, halves=False):
+    """The same steps in this process, no process group: the one-process
+    MobileViT-s on the card, deterministic algorithms on; with ``halves``
+    its FFNs in the two slices of model 2 (``ffn_in_halves``)."""
+    import torch
+    with deterministic(), (ffn_in_halves() if halves
+                           else contextlib.nullcontext()):
+        model, step = layout_setup(dtype, optimizer)
+        run = layout_steps(model, step, feats, labels)
+    del model, step
+    torch.cuda.empty_cache()
+    return run
+
+
+def layout_diff(got, ref, dtype, grad_bound=LAYOUT_F32_REL_TOL):
+    """A run against a reference run: {bit_equal, per-step loss errors,
+    gradient and weight errors, ok}; the five gradients farthest from the
+    reference are named. f32: the first step's loss within
+    LAYOUT_F32_REL_TOL, every first-step gradient within ``grad_bound``
+    of its max|ref|, the weights within Adam's bound; bf16: the losses
+    within TRAIN_LOSS_REL_TOL."""
+    import torch
+
+    def rel(a, b):
+        return ((a.double() - b.double()).abs().max()
+                / b.double().abs().max().clamp(min=1e-30)).item()
+    loss_rel = [((a - b).abs() / b.abs()).max().item()
+                for a, b in zip(got["losses"], ref["losses"])]
+    weights_abs = max((got["states"][s][k].double()
+                       - ref["states"][s][k].double()).abs().max().item()
+                      / (s + 1)
+                      for s in range(LAYOUT_STEPS)
+                      for k in ref["states"][s]
+                      if ref["states"][s][k].is_floating_point())
+    grads = sorted(((rel(got["grads"][k], ref["grads"][k]), k,
+                     ref["grads"][k].abs().max().item())
+                    for k in ref["grads"]), reverse=True)
+    out = {"bit_equal": all(
+        torch.equal(got["states"][-1][k], ref["states"][-1][k])
+        for k in ref["states"][-1]) and all(
+        torch.equal(a, b) for a, b in zip(got["losses"], ref["losses"])),
+        "grads_bit_equal": all(torch.equal(got["grads"][k], ref["grads"][k])
+                               for k in ref["grads"]),
+        "loss_rel_err_by_step": loss_rel,
+        "weights_max_abs_err_per_step": weights_abs,
+        "grad_max_rel_err": grads[0][0],
+        "grad_worst": [{"param": k, "rel_err": e, "max_ref": m}
+                       for e, k, m in grads[:5]]}
+    if dtype == "f32":
+        out["grad_bound"] = grad_bound
+        out["ok"] = (loss_rel[0] <= LAYOUT_F32_REL_TOL
+                     and grads[0][0] <= grad_bound
+                     and weights_abs <= LAYOUT_ADAM_LRS * LAYOUT_LR)
+    else:
+        out["ok"] = max(loss_rel) <= TRAIN_LOSS_REL_TOL
+    return out
+
+
+def phase_layouts(counters, gpu_line):
+    """Tensor and sequence parallelism on the one card (module
+    docstring)."""
+    import torch
+    from picklebot_tpu_torch.models.mobilevit import (MOBILEVIT_CONFIGS,
+                                                      MobileViT)
+    t_start = time.perf_counter()
+    feats, labels = layout_batch()
+    packed = sum(VIT_PACKED.values())
+    sp_packed = sum(c for n, c in VIT_PACKED.items() if n % 2)
+    # per rank and step: the flash launches (rows 3-4) and the stacks
+    # that run token-sharded; at seq 2 the even-N stages go through ring
+    # attention and stage 2 (N = 147) falls back to the packed kernel
+    per_step = {"tp": (packed, []),
+                "sp": (sp_packed, [f"trunk.{i}.1.transformer"
+                                   for i, (n, *_) in enumerate(VIT_STAGES)
+                                   if n % 2 == 0])}
+    res = {"card": gpu_line, "modes": {}}
+    failed = []
+    refs = {name: layout_reference(dtype, opt, feats, labels)
+            for name, dtype, opt in LAYOUT_JOBS}
+    # the f32 floor: the one-process step with the FFN in two slices
+    # against the plain one
+    halves = layout_reference("f32", "adamw", feats, labels, halves=True)
+    res["f32_floor"] = layout_diff(halves, refs["f32"], "f32")
+    for key in ("ok", "grad_bound"):     # a reading, not a check
+        res["f32_floor"].pop(key)
+    floor = res["f32_floor"]["grad_max_rel_err"]
+    plain_bound = max(LAYOUT_F32_REL_TOL, LAYOUT_FLOOR_FACTOR * floor)
+    emit({"phase": "layouts", "part": "f32_floor", **res["f32_floor"],
+          "plain_bound": plain_bound})
+    with tempfile.TemporaryDirectory(prefix="layouts_") as out_dir:
+        for mode in LAYOUT_MODES:
+            t0 = time.perf_counter()
+            outs, rcs = layout_spawn(mode, out_dir, LAYOUT_RANK_TIMEOUT)
+            spawn_s = time.perf_counter() - t0
+            if any(rcs):
+                raise AssertionError(f"layouts {mode} ranks exited {rcs}:\n"
+                                     + "\n".join(o[-3000:] for o in outs))
+            ranks = []
+            for r in range(2):
+                with open(os.path.join(out_dir, f"{mode}_rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+            flash_n, engaged = per_step[mode]
+            want = launches_wanted(
+                fused={"main": 7 * LAYOUT_STEPS},
+                flash={"packed": flash_n * LAYOUT_STEPS,
+                       "dq": flash_n * LAYOUT_STEPS,
+                       "dkv": flash_n * LAYOUT_STEPS},
+                conv={"fwd": 6 * LAYOUT_STEPS, "dx": 6 * LAYOUT_STEPS})
+            checks = {}
+            for name, dtype, _ in LAYOUT_JOBS:
+                coll = layout_collectives_want(mode, dtype,
+                                               sp_stack_params())
+                for r in range(2):
+                    got = ranks[r][name]
+                    if got["launches"] != want:
+                        raise AssertionError(
+                            f"layouts {mode} {name} rank {r} launches "
+                            f"{got['launches']}, want {want}")
+                    if got["engaged"] != engaged:
+                        raise AssertionError(
+                            f"layouts {mode} {name} rank {r}: token-sharded "
+                            f"stacks {got['engaged']}, want {engaged}")
+                    for s, c in enumerate(got["collectives"]):
+                        c = {k: v for k, v in c.items() if v["count"]}
+                        if c != coll:
+                            raise AssertionError(
+                                f"layouts {mode} {name} rank {r} step {s} "
+                                f"collectives {c}, want {coll}")
+                if ranks[0][name]["digest"] != ranks[1][name]["digest"]:
+                    raise AssertionError(f"layouts {mode} {name}: the "
+                                         "ranks' weights differ")
+                run = torch.load(os.path.join(out_dir, f"{mode}_{name}.pt"),
+                                 weights_only=False)
+                checks[name] = layout_diff(run, refs[name], dtype,
+                                           plain_bound)
+                checks[name]["collectives_per_step"] = coll
+                if mode == "tp" and dtype == "f32":
+                    checks["f32_vs_halves"] = layout_diff(run, halves,
+                                                          "f32")
+
+            failed += [f"{mode} {k}" for k, c in checks.items()
+                       if not c["ok"]]
+            mres = {"checks": checks, "spawn_seconds": spawn_s,
+                    "launches": {f"rank{r}": {n: ranks[r][n]["launches"]
+                                              for n, *_ in LAYOUT_JOBS}
+                                 for r in range(2)},
+                    "by_job": {n: {k: [ranks[r][n][k] for r in range(2)]
+                                   for k in ("step_ms_host",
+                                             "peak_memory_bytes",
+                                             "local_params")}
+                               for n, *_ in LAYOUT_JOBS},
+                    "note": "two processes share one card: step times are "
+                            "not a speed figure"}
+            if mode == "sp":
+                mres["ring"] = [ranks[r]["ring"] for r in range(2)]
+            if mode == "tp":
+                # the TP run's .pth (full leaves) in one process: strict
+                # load, then serve on the card with model_parallel in the
+                # config (serve takes the replicated equivalent)
+                pth = os.path.join(out_dir, "tp.pth")
+                model = MobileViT(num_classes=13, seed=1,
+                                  **MOBILEVIT_CONFIGS["s"])
+                model.load_state_dict(torch.load(pth, weights_only=True),
+                                      strict=True)
+                cfg = serve_config("MobileViT", **MOBILEVIT_CONFIGS["s"],
+                                   attention_backend="auto",
+                                   model_parallel=2)
+                launches, serve_s, n_preds, evaluated = serve_run(
+                    cfg, model, counters, pth=pth)
+                swant = launches_wanted(fused={"main": 14},
+                                        flash={"packed": 2 * packed},
+                                        conv={"fwd": 12})
+                if launches != swant:
+                    raise AssertionError(f"layouts tp .pth serve: launches "
+                                         f"{launches}, want {swant}")
+                mres["serve_pth"] = {"predictions": n_preds,
+                                     "evaluated": evaluated,
+                                     "launches": launches,
+                                     "serve_wall_s": serve_s}
+            emit({"phase": "layouts", "mode": mode, **mres})
+            res["modes"][mode] = mres
+    res["four_ranks"] = ("model 2 x seq 2 is left to the CPU tests "
+                         "(tests/test_torch_sp.py::test_sp_composes_with_tp)")
+    res["seconds"] = time.perf_counter() - t_start
+    emit({"phase": "layouts", "seconds": res["seconds"]})
+    if failed:
+        raise AssertionError(f"layouts: {failed} against the one-process "
+                             "runs past the bounds (their JSON lines above)")
+    return res
+
+
 def fused_entry(name, line, fused_per, launches_by_run):
     """Summary entry of one fused-bottleneck kernel: ms, plain, bound and
     library times summed over one bs-8 forward of each model (the top
@@ -4502,7 +5013,10 @@ def parse_args(argv):
         "decoder, the CLI with the profilers and the autotuner, the "
         "summary), dp (data parallelism and ZeRO: NCCL at world 1, two "
         "processes on the card over gloo, the sharded predictor, the "
-        "autotuner's broadcast). A partial run prints no kernels summary")
+        "autotuner's broadcast), layouts (tensor and sequence "
+        "parallelism on MobileViT-s: two processes on the card over gloo "
+        "against one, ring attention, the TP run's .pth served). A "
+        "partial run prints no kernels summary")
     ap.add_argument(
         "--ab-forward", metavar="DIR", default=None,
         help="instead of the phases: MobileNetLarge3D's eager serve "
@@ -4514,6 +5028,11 @@ def parse_args(argv):
     ap.add_argument("--dp-port", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--dp-out", help=argparse.SUPPRESS)
     ap.add_argument("--dp-mode", choices=("gloo", "nccl_probe"),
+                    help=argparse.SUPPRESS)
+    # one rank of the layouts phase (the phase starts them)
+    ap.add_argument("--layout-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--layout-mode", choices=tuple(LAYOUT_MODES),
                     help=argparse.SUPPRESS)
     return ap.parse_args(argv)
 
@@ -4533,6 +5052,8 @@ def main(argv=None):
     sys.path.insert(0, ROOT)
     if args.dp_rank is not None:
         return dp_rank_main(args)
+    if args.layout_rank is not None:
+        return layout_rank_main(args)
     from picklebot_tpu_torch.utils.build import build_all
 
     gpu_line = nvidia_smi_line()
@@ -4696,6 +5217,10 @@ def main(argv=None):
     if selected("dp"):
         dp = phase_dp(counters)
         seconds["dp"] = dp["seconds"]
+    layouts = None
+    if selected("layouts"):
+        layouts = phase_layouts(counters, gpu_line)
+        seconds["layouts"] = layouts["seconds"]
     seconds["total"] = time.perf_counter() - T_START
     emit({"phase": "seconds", **seconds})
 
@@ -4708,7 +5233,7 @@ def main(argv=None):
                         "MobileNetSmall3D": small, "MoViNetA2": movinet},
               "train": train, "trainx": trainx, "stream": stream, "v2": v2,
               "bench": bench_runs, "surface": surface, "tooling": tooling,
-              "dp": dp}
+              "dp": dp, "layouts": layouts}
     if only:
         skipped = [p for p in PHASES if not selected(p)
                    and not (p in ("fused", "conv", "flash")
@@ -4754,6 +5279,14 @@ def main(argv=None):
         runs.update({f"dp_gloo_{rank}_{job}": launches["fused"]
                      for job, launches in jobs.items()})
     runs["dp_sharded_predict"] = dp["sharded_predict"]["launches"]["fused"]
+    # the layouts phase: each rank's run of each job, and the .pth served
+    layout_runs = {f"layouts_{mode}_{rank}_{job}": launches
+                   for mode, m in layouts["modes"].items()
+                   for rank, jobs in m["launches"].items()
+                   for job, launches in jobs.items()}
+    layout_runs["layouts_tp_pth_serve"] = layouts["modes"]["tp"][
+        "serve_pth"]["launches"]
+    runs.update({k: v["fused"] for k, v in layout_runs.items()})
     if tooling["decode"]["ffmpeg_available"]:
         runs["tooling_serve_ffmpeg"] = tooling["decode"]["serve"][
             "launches"]["fused"]
@@ -4772,6 +5305,8 @@ def main(argv=None):
     flash_runs.update({k: v["flash"] for k, v in vit_remat.items()})
     flash_runs["surface_export_mobilevit"] = surface_runs[
         "surface_export_mobilevit"]["flash"]
+    flash_runs.update({k: v["flash"] for k, v in layout_runs.items()})
+    packed_bwd_runs.update({k: v["flash"] for k, v in layout_runs.items()})
     conv_runs = {"serve_mobilevit": vit["launches"]["conv"],
                  **{f"forward_mobilevit_{b}": vit[b]["launches"]["conv"]
                     for b in ("pallas", "pallas_packed")},
@@ -4782,7 +5317,8 @@ def main(argv=None):
                     for b in ("pallas", "pallas_packed")},
                  **{k: v["conv"] for k, v in vit_remat.items()},
                  "surface_export_mobilevit":
-                 surface_runs["surface_export_mobilevit"]["conv"]}
+                 surface_runs["surface_export_mobilevit"]["conv"],
+                 **{k: v["conv"] for k, v in layout_runs.items()}}
     tpu = "picklebot_tpu/ops/pallas/"
     kernels = [
         fused_entry("pool", 86, fused_per, runs),
@@ -4806,7 +5342,8 @@ def main(argv=None):
                         heads_bwd_runs, dict(VIT_ATTENTION)),
         conv_entry("fwd", conv, conv_runs),
         conv_entry("dx", conv, {k: r for k, r in conv_runs.items()
-                                if k.startswith(("train_", "trainx_"))}),
+                                if k.startswith(("train_", "trainx_",
+                                                 "layouts_"))}),
     ]
     # the host's collate over the whole script: every batch the C++ core's
     from picklebot_tpu_torch.data.native import COLLATES

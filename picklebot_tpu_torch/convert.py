@@ -9,7 +9,10 @@ its own copy of the key tables of the eight models and the layout rules
 of ``picklebot_tpu/train/key_maps.py`` and ``checkpoint.py`` (conv
 (k..., I, O) -> (O, I, k...), 2-D linear and LSTM (I, O) -> (O, I), a 1x1
 conv kept as a matrix -> (O, I, 1, 1, 1), or (O, I, 1, 1) in the 2-D
-models, BN statistics as state only).
+models, BN statistics as state only). ``shard_state_dict`` cuts a full state
+dict into one tensor-parallel rank's (MobileViT's FFN weights by
+``parallel/megatron.py``'s rules) and ``unshard_state_dicts`` joins the
+ranks' back: JAX -> ``state_dict_from_jax`` -> a rank's shard, and back.
 
 The CLI, the counterpart of ``python -m picklebot_tpu.convert`` on the
 port's formats; the direction follows the output's suffix, and no device
@@ -250,6 +253,36 @@ def state_dict_from_jax(flat_params: Dict[str, np.ndarray],
         if tk.endswith(".running_mean"):
             out[tk[:-len("running_mean")] + "num_batches_tracked"] = \
                 torch.zeros((), dtype=torch.int64)
+    return out
+
+
+def shard_state_dict(sd: Dict[str, torch.Tensor], rank: int,
+                     model_parallel: int) -> Dict[str, torch.Tensor]:
+    """A full state dict -> the one of 'model' rank ``rank`` of
+    ``model_parallel``: each FeedForward's ``net.0`` weight (and bias)
+    keeps its rank's rows and ``net.3`` weight its columns, as the JAX
+    ``MOBILEVIT_TP_RULES`` shard fc1 and fc2; the rest is shared."""
+    from picklebot_tpu_torch.parallel.megatron import shard_tensor, tp_dim
+    if model_parallel <= 1:
+        return dict(sd)
+    out = {}
+    for k, v in sd.items():
+        dim = tp_dim(k)
+        out[k] = v if dim is None else shard_tensor(v, dim, rank,
+                                                    model_parallel)
+    return out
+
+
+def unshard_state_dicts(shards) -> Dict[str, torch.Tensor]:
+    """The inverse of ``shard_state_dict``: the 'model' ranks' state dicts,
+    in rank order -> the full one (each shared tensor from rank 0)."""
+    from picklebot_tpu_torch.parallel.megatron import tp_dim
+    shards = list(shards)
+    out = {}
+    for k, v in shards[0].items():
+        dim = tp_dim(k)
+        out[k] = (v if dim is None or len(shards) == 1
+                  else torch.cat([sd[k] for sd in shards], dim=dim))
     return out
 
 

@@ -24,10 +24,20 @@ attention the flash kernels of ``ops/flash_attention.py`` and each block's
 dense stride-1 3x3x3 ``conv1``/``conv4`` the conv kernel of
 ``ops/folded_conv.py``; the stride-2 stem conv, the 1x1 convs and the
 linears are cuDNN and matmul calls, as the JAX package leaves them to XLA.
+
+The parallel layouts of the JAX model, each over an axis of
+``parallel/mesh.py``'s mesh: ``model_axis`` shards every FeedForward's
+hidden width over that axis (tensor parallelism, Megatron's f and g of
+``parallel/megatron.py``; the rank holds its 1/size of ``net.0`` and
+``net.3``, which ``reset_parameters`` draws whole and slices, so the
+seeded weights are the one-process model's), and ``sequence_axis``
+shards every transformer stack's tokens (sequence parallelism,
+``parallel/sequence.py`` and ring attention). The two axes must differ.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence, Tuple
 
 import torch
@@ -38,8 +48,12 @@ from picklebot_tpu_torch.ops import activations as act
 from picklebot_tpu_torch.ops.attention import MultiHeadAttention
 from picklebot_tpu_torch.ops.bottleneck import Bottleneck3D
 from picklebot_tpu_torch.ops.conv import Conv3d
-from picklebot_tpu_torch.ops.linear import Dropout, GlobalAvgPool, Linear
+from picklebot_tpu_torch.ops.linear import (Dropout, GlobalAvgPool, Linear,
+                                            current_dropout_rng, dropout_rng)
 from picklebot_tpu_torch.ops.norm import BatchNorm
+from picklebot_tpu_torch.parallel import mesh
+from picklebot_tpu_torch.parallel.megatron import (shard_tensor, tp_copy_in,
+                                                   tp_reduce_out)
 
 _INIT_STD = 0.02
 
@@ -69,51 +83,129 @@ def conv_nxn_bn(cin, cout, kernel_size=3, stride=1):
 
 class FeedForward(nn.Module):
     """Linear -> SiLU -> Dropout -> Linear -> Dropout, bias-free, with no
-    pre-norm (the reference's)."""
+    pre-norm (the reference's).
 
-    def __init__(self, embed_dim, hidden_dim, dropout=0.0):
+    With ``model_axis`` (an axis of more than one rank) the hidden width is
+    sharded over it: the rank holds rows ``net.0`` and columns ``net.3``
+    of its 1/size (``tp_sharded``), the input enters through
+    ``tp_copy_in`` and the partial outputs sum through ``tp_reduce_out``
+    before the last dropout, as the JAX ``FeedForward`` does."""
+
+    def __init__(self, embed_dim, hidden_dim, dropout=0.0, model_axis=None):
         super().__init__()
+        n = mesh.axis_size(model_axis) if model_axis else 1
+        if hidden_dim % n:
+            raise ValueError(f"FeedForward hidden width {hidden_dim} does "
+                             f"not split over {n} model-parallel ranks")
+        self.model_axis = model_axis if n > 1 else None
         self.net = nn.Sequential(
-            Linear(embed_dim, hidden_dim, bias=False),
+            Linear(embed_dim, hidden_dim // n, bias=False),
             act.Activation(act.silu), Dropout(dropout),
-            Linear(hidden_dim, embed_dim, bias=False), Dropout(dropout))
+            Linear(hidden_dim // n, embed_dim, bias=False), Dropout(dropout))
+        self.tp_sharded = {}
+        if self.model_axis:
+            self.tp_sharded = {"net.0.weight": 0, "net.3.weight": 1}
+            r = mesh.axis_index(model_axis)
+            # reset_parameters draws the whole weight and keeps the slice
+            self.net[0].tp_full = ((hidden_dim, embed_dim), 0, r, n)
+            self.net[3].tp_full = ((embed_dim, hidden_dim), 1, r, n)
 
     def forward(self, x):
-        return self.net(x)
+        if self.model_axis is None:
+            return self.net(x)
+        x = tp_copy_in(x, self.model_axis)
+        x = self.net[3](self.net[2](self.net[1](self.net[0](x))))
+        return self.net[4](tp_reduce_out(x, self.model_axis))
 
 
 class TransformerStack(nn.Module):
-    """depth x (pre-LN attention + residual, FeedForward + residual): the
-    plain layer loop. Its sequence- and pipeline-parallel forms belong to
-    the parallel layouts slice (ROADMAP.md, queue A, slice 7)."""
+    """depth x (pre-LN attention + residual, FeedForward + residual).
+
+    ``model_axis`` shards the FeedForwards (tensor parallelism).
+    ``sequence_axis``: when the axis has more than one rank and divides
+    the token count N, the tokens are scattered over it at entry
+    (``sp_scatter_tokens``) and gathered at exit, attention is ring
+    attention over the blocks, and LayerNorm, FFN, residuals and dropout
+    run on the local block; ``sp_engaged`` records it, so that the train
+    step sums exactly these parameters' gradients over the axis
+    (``sequence.sp_sync_grads``). Otherwise the stack runs replicated
+    (stage 2 of MobileViT-s, N = 147, at an even axis). Under dropout the
+    token-sharded layers draw from a stream seeded with the axis rank
+    (the JAX stack folds it into its key). Pipeline parallelism
+    (``pipeline_axis``) is ROADMAP.md's A20.3."""
 
     def __init__(self, embed_dim, depth, heads, dim_head, ffw_dim,
-                 dropout=0.0, backend="auto"):
+                 dropout=0.0, backend="auto", model_axis=None,
+                 sequence_axis=None):
         super().__init__()
+        if sequence_axis is not None and sequence_axis == model_axis:
+            raise ValueError(
+                "sequence_axis and model_axis must be distinct mesh axes: "
+                "token-sharded FFN inputs with hidden-sharded weights would "
+                "sum partials of different token blocks together")
+        self.sequence_axis = sequence_axis
+        self.dropout = dropout
+        self.sp_engaged = False
         self.layers = nn.ModuleList([
             nn.ModuleList([
                 MultiHeadAttention(embed_dim, heads, dim_head, dropout,
-                                   backend=backend),
-                FeedForward(embed_dim, ffw_dim, dropout)])
+                                   backend=backend,
+                                   sequence_axis=sequence_axis),
+                FeedForward(embed_dim, ffw_dim, dropout,
+                            model_axis=model_axis)])
             for _ in range(depth)])
 
+    def sp_active(self, n_tokens: int) -> bool:
+        """Whether a sequence of ``n_tokens`` runs token-sharded."""
+        if self.sequence_axis is None:
+            return False
+        size = mesh.axis_size(self.sequence_axis)
+        return size > 1 and n_tokens % size == 0
+
     def forward(self, x, kernels: bool = True):
-        for attn, ff in self.layers:
-            x = attn(x, kernels=kernels) + x
-            x = ff(x) + x
-        return x
+        sp = self.sp_active(x.shape[-2])
+        self.sp_engaged = sp
+        if not sp:
+            for attn, ff in self.layers:
+                x = attn(x, kernels=kernels) + x
+                x = ff(x) + x
+            return x
+        from picklebot_tpu_torch.parallel.sequence import (sp_gather_tokens,
+                                                           sp_scatter_tokens)
+        with self._rank_stream():
+            x = sp_scatter_tokens(x, self.sequence_axis)
+            for attn, ff in self.layers:
+                x = attn(x, kernels=kernels, sp_active=True) + x
+                x = ff(x) + x
+        return sp_gather_tokens(x, self.sequence_axis)
+
+    def _rank_stream(self):
+        """Under train-mode dropout, a dropout generator seeded from the
+        current one and this rank of the axis: independent masks per
+        token block. Without dropout the current stream is left as it
+        is."""
+        g = current_dropout_rng()
+        if not (self.training and self.dropout > 0) or g is None:
+            return contextlib.nullcontext()
+        seed = int(torch.randint(2 ** 62, (1,), generator=g,
+                                 device=g.device))
+        local = torch.Generator(device=g.device)
+        local.manual_seed((seed * 1_000_003
+                           + mesh.axis_index(self.sequence_axis)) % 2 ** 63)
+        return dropout_rng(local)
 
 
 class MobileViTBlock(nn.Module):
     def __init__(self, embed_dim, depth, channel, kernel_size=3,
                  patch_size=(2, 2, 2), ffw_dim=None, dropout=0.0,
-                 backend="auto"):
+                 backend="auto", model_axis=None, sequence_axis=None):
         super().__init__()
         self.patch_size = tuple(patch_size)
         self.conv1 = conv_nxn_bn(channel, channel, kernel_size)
         self.conv2 = conv_1x1_bn(channel, embed_dim)
         self.transformer = TransformerStack(embed_dim, depth, 8, 16, ffw_dim,
-                                            dropout, backend)
+                                            dropout, backend, model_axis,
+                                            sequence_axis)
         self.conv3 = conv_1x1_bn(embed_dim, channel)
         self.conv4 = conv_nxn_bn(2 * channel, channel, kernel_size)
 
@@ -144,7 +236,8 @@ class MobileViT(nn.Module):
                  kernel_size: int = 3,
                  patch_size: Tuple[int, int, int] = (2, 2, 2),
                  depths: Tuple[int, int, int] = (2, 4, 3),
-                 attention_backend: str = "auto", seed: int = 0):
+                 attention_backend: str = "auto", seed: int = 0,
+                 model_axis=None, sequence_axis=None):
         super().__init__()
         assert len(dims) == 3 and len(depths) == 3
         ch = list(channels)
@@ -161,7 +254,9 @@ class MobileViT(nn.Module):
         def vit(i, ffw_mult, channel):
             return MobileViTBlock(dims[i], depths[i], channel, kernel_size,
                                   patch_size, int(dims[i] * ffw_mult),
-                                  backend=attention_backend)
+                                  backend=attention_backend,
+                                  model_axis=model_axis,
+                                  sequence_axis=sequence_axis)
 
         self.trunk = nn.ModuleList([
             nn.Sequential(B(ch[3], ch[4], ch[3] * expansion, stride=2),
@@ -184,7 +279,14 @@ class MobileViT(nn.Module):
         for m in self.modules():
             if isinstance(m, (Conv3d, Linear)):
                 with torch.no_grad():
-                    m.weight.normal_(0.0, _INIT_STD, generator=g)
+                    full = getattr(m, "tp_full", None)
+                    if full is None:
+                        m.weight.normal_(0.0, _INIT_STD, generator=g)
+                    else:   # the whole weight drawn, this rank's slice kept
+                        shape, dim, r, n = full
+                        w = torch.empty(shape).normal_(0.0, _INIT_STD,
+                                                       generator=g)
+                        m.weight.copy_(shard_tensor(w, dim, r, n))
                     if m.bias is not None:
                         m.bias.zero_()
             elif m is not self and hasattr(m, "reset_parameters"):

@@ -16,6 +16,7 @@ from picklebot_tpu_torch.models.mobilenet3d import (MobileNetLarge3D,
 from picklebot_tpu_torch.models.mobilevit import MobileViT
 from picklebot_tpu_torch.models.mobilevitv2 import MobileViTV2
 from picklebot_tpu_torch.models.movinet import MoViNetA2, MoViNetA2Stream
+from picklebot_tpu_torch.parallel import mesh
 
 # the models built from num_classes and the seed alone
 _PLAIN = {"MobileNetLarge3D": MobileNetLarge3D,
@@ -29,21 +30,34 @@ PORTED = ("MobileNetLarge3D", "MobileNetSmall3D", "MobileViT", "MoViNetA2",
 
 
 def _mobilevit(cfg):
-    for knob in ("model_parallel", "sequence_parallel", "pipeline_parallel"):
-        if getattr(cfg, knob) > 1:
-            raise NotImplementedError(
-                f"MobileViT with {knob}={getattr(cfg, knob)} comes with the "
-                "parallel layouts slice of the port (ROADMAP.md, queue A, "
-                "slice 7)")
+    """MobileViT, with its FFNs sharded over the mesh's 'model' axis at
+    ``model_parallel`` > 1 and its transformer tokens over 'seq' at
+    ``sequence_parallel`` > 1 (``parallel/mesh.init_mesh`` lays the
+    process group out first)."""
+    if cfg.pipeline_parallel > 1:
+        raise NotImplementedError(
+            f"MobileViT with pipeline_parallel={cfg.pipeline_parallel} is "
+            "not ported yet (ROADMAP.md, queue A, item A20.3, pipeline "
+            "parallelism)")
     if cfg.moe_experts > 0:
         raise NotImplementedError(
-            "MobileViT with moe_experts > 0 comes with the parallel layouts "
-            "slice of the port (ROADMAP.md, queue A, slice 7)")
+            "MobileViT with moe_experts > 0 is not ported yet (ROADMAP.md, "
+            "queue A, item A20.4, expert parallelism and MoE)")
     if cfg.dims is None or cfg.channels is None:
         raise ValueError("a MobileViT config needs 'dims' and 'channels'")
+    for axis, degree in (("model", cfg.model_parallel),
+                         ("seq", cfg.sequence_parallel)):
+        if degree > 1 and mesh.axis_size(axis) != degree:
+            raise ValueError(
+                f"a MobileViT with a '{axis}' axis of {degree} needs the "
+                f"process group laid out as that mesh first (parallel."
+                f"mesh.init_mesh); the axis has {mesh.axis_size(axis)}")
     return MobileViT(dims=cfg.dims, channels=cfg.channels,
                      num_classes=cfg.num_classes,
-                     attention_backend=cfg.attention_backend, seed=cfg.seed)
+                     attention_backend=cfg.attention_backend, seed=cfg.seed,
+                     model_axis="model" if cfg.model_parallel > 1 else None,
+                     sequence_axis=("seq" if cfg.sequence_parallel > 1
+                                    else None))
 
 
 def initialize_model(cfg):

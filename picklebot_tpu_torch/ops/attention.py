@@ -23,8 +23,15 @@ backward kernels). ``forward(x, kernels=False)`` runs ``sdpa`` whatever
 the backend, on the card too: the reference the kernels are held against.
 In train mode with dropout > 0 every backend runs ``sdpa`` with
 attention-probability dropout, as the JAX package falls back to XLA there
-(the kernels have no dropout path). Sequence parallelism is not ported
-(ROADMAP.md).
+(the kernels have no dropout path).
+
+Sequence parallelism (``sequence_axis``; the JAX ``_forward_sp``): with
+``sp_active`` the input is this rank's token block of a sequence that the
+``TransformerStack`` scattered over the axis. Without dropout the
+attention is ``ring_attention`` over the axis (plain PyTorch, the K/V
+blocks travel round the ring); with attention dropout in train mode the
+K/V blocks are all-gathered and the local queries run ``sdpa`` with the
+mask drawn per rank (the stack seeds the dropout stream with the rank).
 
 ``LinearSelfAttention`` is the counterpart of the JAX package's: a
 softmax over patches, a sum and a gated product, which no TPU kernel
@@ -64,10 +71,6 @@ class MultiHeadAttention(nn.Module):
                  dropout: float = 0.0, backend: str = "auto",
                  sequence_axis: Optional[str] = None):
         super().__init__()
-        if sequence_axis is not None:
-            raise NotImplementedError(
-                "sequence-parallel attention comes with the parallel "
-                "layouts slice of the port (ROADMAP.md, queue A, slice 7)")
         if backend not in BACKENDS:
             raise ValueError(f"attention backend {backend!r} (valid: "
                              f"{BACKENDS})")
@@ -78,6 +81,7 @@ class MultiHeadAttention(nn.Module):
         self.scale = dim_head ** -0.5
         self.dropout_p = dropout
         self.backend = backend
+        self.sequence_axis = sequence_axis
         self.norm = LayerNorm(embed_dim, affine=False)
         self.to_qkv = Linear(embed_dim, self.inner_dim * 3, bias=False)
         self.to_out = nn.Sequential(
@@ -91,8 +95,23 @@ class MultiHeadAttention(nn.Module):
         return (self.backend == "auto" and self.inner_dim <= 128
                 and n >= _PACKED_MIN_SEQ)
 
-    def forward(self, x, kernels: bool = True):
+    def _forward_sp(self, qkv, dropout: float):
+        from picklebot_tpu_torch.ops.ring_attention import ring_attention
+        from picklebot_tpu_torch.parallel.sequence import all_gather_tokens
+        q, k, v = (split_heads(t, self.heads) for t in qkv.chunk(3, dim=-1))
+        if dropout > 0.0:
+            # the dropped probabilities need whole score rows
+            k = all_gather_tokens(k, self.sequence_axis)
+            v = all_gather_tokens(v, self.sequence_axis)
+            out = sdpa(q, k, v, self.scale, dropout_p=dropout)
+        else:
+            out = ring_attention(q, k, v, self.sequence_axis, self.scale)
+        return self.to_out(merge_heads(out))
+
+    def forward(self, x, kernels: bool = True, sp_active: bool = False):
         dropout = self.dropout_p if self.training else 0.0
+        if sp_active:
+            return self._forward_sp(self.to_qkv(self.norm(x)), dropout)
         kernels = kernels and dropout == 0.0
         x = self.norm(x)
         qkv = self.to_qkv(x)                            # (..., N, 3*H*D)

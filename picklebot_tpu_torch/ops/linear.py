@@ -183,6 +183,11 @@ def dropout_rng(generator: torch.Generator):
         _GENERATOR.reset(token)
 
 
+def current_dropout_rng():
+    """The generator of the innermost ``dropout_rng`` block, or None."""
+    return _GENERATOR.get()
+
+
 def dropout_mask(shape, keep: float, device) -> torch.Tensor:
     """A bool mask of ``shape``, each entry True with probability
     ``keep``, from the current ``dropout_rng`` generator."""

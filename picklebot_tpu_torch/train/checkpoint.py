@@ -23,7 +23,12 @@ prunes (the trainer's other ranks wait at a barrier after a blocking
 write); a ZeRO run's optimizer state is stored stacked by rank (see
 ``snapshot``) and resharded for the resuming run's degree. Orbax snapshots
 stay the JAX package's (its ``python -m picklebot_tpu.convert`` exports
-their weights as a ``.pth``).
+their weights as a ``.pth``). Under tensor parallelism a snapshot is a
+collective over 'model' too: it holds full leaves (each FFN shard
+gathered, ``full_state_dict``) and the optimizer state in the JAX TP
+layout (``parallel/megatron.gather_optimizer_state``), so it, and the
+``.pth`` of such a run, loads into one process as it is; a resume cuts
+them again for its own ranks.
 """
 
 from __future__ import annotations
@@ -54,16 +59,19 @@ def snapshot(model, optimizer, ema, epoch: int, loop_state,
     (n, chunk) rank-stack layout and, at stage 3, the parameters and the
     EMA into full leaves, so that a snapshot never depends on the run's
     stage (``zero_degree_of`` reads its degree back)."""
+    from picklebot_tpu_torch.parallel import megatron
     from picklebot_tpu_torch.parallel import zero as zero_mod
     if zero is None:
-        opt_state = optimizer.state_dict()
+        opt_state = megatron.gather_optimizer_state(optimizer, model)
     else:
         opt_state = zero_mod.gather_optimizer_state(zero, optimizer)
         if ema is not None and zero.stage == 3:
             ema = zero_mod.zero3_unshard_params(
                 zero, [ema[k] for k in zero.names])
+    if ema is not None:
+        ema = _gather_tp(model, ema)
     with zero_mod.gathered(zero):
-        weights = {k: _host(v) for k, v in model.state_dict().items()}
+        weights = {k: _host(v) for k, v in full_state_dict(model).items()}
     return {"format": SNAPSHOT_FORMAT,
             "model": weights,
             "ema": None if ema is None else {k: _host(v)
@@ -73,6 +81,22 @@ def snapshot(model, optimizer, ema, epoch: int, loop_state,
             "loop_state": torch.as_tensor(np.asarray(loop_state, np.int64)),
             "early_stop": torch.as_tensor(np.asarray(early_stop,
                                                      np.float64))}
+
+
+def _gather_tp(model, tensors: Dict[str, torch.Tensor]):
+    """``tensors`` ({state-dict key: tensor}) with every TP-sharded one
+    gathered over 'model' (a collective); the rest as they are."""
+    from picklebot_tpu_torch.parallel.megatron import gather_tensor, tp_dims
+    dims = tp_dims(model)
+    return {k: v if k not in dims else gather_tensor(v, dims[k])
+            for k, v in tensors.items()}
+
+
+def full_state_dict(model) -> Dict[str, torch.Tensor]:
+    """``model.state_dict()`` with full leaves: under tensor parallelism
+    each FFN shard gathered over 'model' (a collective every rank of the
+    group enters); otherwise the state dict itself."""
+    return _gather_tp(model, model.state_dict())
 
 
 def _write(payload: dict, path: str):

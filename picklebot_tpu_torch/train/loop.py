@@ -1,7 +1,7 @@
 """The trainer: ``train(config, max_steps=None, device="cuda")``.
 
-The counterpart of ``picklebot_tpu/train/loop.py`` without its TP, SP, PP
-and EP layouts: the datasets,
+The counterpart of ``picklebot_tpu/train/loop.py`` without its PP and EP
+layouts: the datasets,
 gradient accumulation (``effective_batch_size // batch_size`` microbatches
 per optimizer step), epochs over ``max_iters`` with a per-epoch shuffle and
 the cosine schedule stepped per epoch, per-microbatch TensorBoard scalars
@@ -44,6 +44,16 @@ writes TensorBoard scalars, snapshots (full leaves, the optimizer state
 stacked by rank), the ``.pth`` and the statistics; a resume reshards the
 optimizer state for its own degree.
 
+Tensor and sequence parallelism (``model_parallel``,
+``sequence_parallel``; MobileViT only): the process group is laid out as
+the JAX mesh (``parallel/mesh.init_mesh``: data = world / (model x
+seq), 'model' innermost), the model is built with its FFNs sharded over
+'model' and its transformer tokens over 'seq', the replicas are the
+'data' ranks (each loads the data shard of its data rank, and the eval's
+sums are added over 'data'), and snapshots and the ``.pth`` hold full
+leaves, cut again for the ranks on resume. Runs start under torchrun as
+data-parallel ones do.
+
 Every config option this trainer does not port raises NotImplementedError
 naming its ROADMAP.md item; none is silently ignored.
 """
@@ -62,13 +72,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from picklebot_tpu_torch.convert import read_pth
+from picklebot_tpu_torch.convert import read_pth, shard_state_dict
 from picklebot_tpu_torch.core.policy import DtypePolicy
 from picklebot_tpu_torch.data.dataset import ClipDataset, read_annotations
 from picklebot_tpu_torch.data.augment import Augment
 from picklebot_tpu_torch.data.loader import DataLoader, accumulate_batches
 from picklebot_tpu_torch.models.registry import initialize_model
-from picklebot_tpu_torch.parallel import mesh
+from picklebot_tpu_torch.parallel import megatron, mesh
 from picklebot_tpu_torch.parallel import zero as zero_mod
 from picklebot_tpu_torch.train import checkpoint as ckpt
 from picklebot_tpu_torch.train.freeze import freeze, frozen_summary
@@ -83,16 +93,13 @@ from picklebot_tpu_torch.utils.devices import resolve_device
 
 # config option -> (is it set?, ROADMAP.md item that ports it)
 UNPORTED = {
-    "model_parallel": (lambda c: c.model_parallel > 1, "queue A, item A20"),
-    "sequence_parallel": (lambda c: c.sequence_parallel > 1,
-                          "queue A, item A20"),
     "pipeline_parallel": (lambda c: c.pipeline_parallel > 1,
-                          "queue A, item A20"),
+                          "queue A, item A20.3"),
     "pipeline_microbatches": (lambda c: c.pipeline_microbatches is not None,
-                              "queue A, item A20"),
+                              "queue A, item A20.3"),
     "expert_parallel": (lambda c: c.expert_parallel > 1,
-                        "queue A, item A20"),
-    "moe_experts": (lambda c: c.moe_experts > 0, "queue A, item A20"),
+                        "queue A, item A20.4"),
+    "moe_experts": (lambda c: c.moe_experts > 0, "queue A, item A20.4"),
 }
 
 
@@ -134,19 +141,31 @@ def _check_checkpoint(path: str):
             "picklebot_tpu.convert; ROADMAP.md, queue A, item A8)")
 
 
-def check_world(config: Config, world: int):
-    """The data-parallel degree of ``config`` against the process
-    group's ``world`` size: ``data_parallel`` (when set) must equal it,
-    and ``dcn_data_parallel`` must divide it."""
-    if config.data_parallel is not None and config.data_parallel != world:
+def check_world(config: Config, world: int) -> int:
+    """The parallel degrees of ``config`` against the process group's
+    ``world`` size, by the JAX loop's rules: ``model_parallel`` x
+    ``sequence_parallel`` must divide it, the quotient is the data degree,
+    ``data_parallel`` (when set) must equal that and
+    ``dcn_data_parallel`` divide it. Returns the data degree."""
+    inner = config.model_parallel * config.sequence_parallel
+    if world % inner:
+        raise ValueError(
+            f"model_parallel={config.model_parallel} x sequence_parallel="
+            f"{config.sequence_parallel} needs a multiple of {inner} ranks; "
+            f"the process group has {world}: launch torchrun "
+            f"--nproc_per_node {inner} (or a multiple)")
+    n_data = world // inner
+    if config.data_parallel is not None and config.data_parallel != n_data:
         raise ValueError(
             f"data_parallel={config.data_parallel} but the process group "
-            f"has {world} rank(s): launch one process per replica (torchrun "
-            f"--nproc_per_node {config.data_parallel} -m "
-            "picklebot_tpu_torch.cli ...) or leave data_parallel unset")
-    if world % config.dcn_data_parallel:
+            f"has {world} rank(s), {n_data} replica(s) of {inner}: launch "
+            f"one process per rank (torchrun --nproc_per_node "
+            f"{config.data_parallel * inner} -m picklebot_tpu_torch.cli "
+            "...) or leave data_parallel unset")
+    if n_data % config.dcn_data_parallel:
         raise ValueError(f"dcn_data_parallel={config.dcn_data_parallel} "
-                         f"must divide the {world} rank(s)")
+                         f"must divide the {n_data} replica(s)")
+    return n_data
 
 
 class _NoWriter:
@@ -184,7 +203,8 @@ def _make_datasets(config: Config):
                   sample_fps=config.sample_fps,
                   synthetic_classes=syn_classes,
                   skip_bad_clips=config.skip_bad_clips,
-                  shard=mesh.rank(), num_shards=mesh.world())
+                  shard=mesh.axis_index("data"),
+                  num_shards=mesh.axis_size("data"))
     return (ClipDataset(config.train_annotations_file, config.video_paths,
                         **kwargs),
             ClipDataset(config.val_annotations_file, config.video_paths,
@@ -243,6 +263,7 @@ def train(config: Config, max_steps: Optional[int] = None,
     CLI's (cProfile around this call)."""
     check_ported(config)
     check_world(config, mesh.world())
+    mesh.init_mesh(model=config.model_parallel, seq=config.sequence_parallel)
     device = resolve_device(device)
     benchmark = None
     if config.autotune:
@@ -255,6 +276,8 @@ def train(config: Config, max_steps: Optional[int] = None,
 def _train(config: Config, max_steps: Optional[int], device) -> dict:
     policy = DtypePolicy.bf16() if config.use_autocast else DtypePolicy.f32()
     n_ranks, rank, is_main = mesh.world(), mesh.rank(), mesh.is_main()
+    n_data = mesh.axis_size("data")
+    mp, m_rank = config.model_parallel, mesh.axis_index("model")
     model = initialize_model(config)
     if config.freeze_params:
         # before the optimizer is built: it keeps the trainable ones only
@@ -287,6 +310,10 @@ def _train(config: Config, max_steps: Optional[int], device) -> dict:
         else:
             payload = ckpt.load_checkpoint(config.checkpoint)
             warm = config.warm_start
+        # full leaves on disk: this rank's TP shards
+        payload["model"] = shard_state_dict(payload["model"], m_rank, mp)
+        if payload.get("ema") is not None:
+            payload["ema"] = shard_state_dict(payload["ema"], m_rank, mp)
         if warm and config.warm_start_partial:
             _warm_graft(model, payload["model"], config.model_name)
         else:
@@ -337,6 +364,9 @@ def _train(config: Config, max_steps: Optional[int], device) -> dict:
                                               n_old=n_saved)
         if zero is not None:
             opt_state = zero_mod.local_optimizer_state(zero, opt_state)
+        else:
+            opt_state = megatron.local_optimizer_state(opt_state, optimizer,
+                                                       model)
         optimizer.load_state_dict(opt_state)
     schedule = cosine_annealing_lr(config.learning_rate, config.max_iters,
                                    warmup=config.warmup_epochs)
@@ -371,7 +401,7 @@ def _train(config: Config, max_steps: Optional[int], device) -> dict:
     n_train = mesh.min_int(len(train_loader)) if n_ranks > 1 else None
     print(f"Using {accum} gradient accumulation steps for a total effective "
           f"batch size of {config.effective_batch_size}"
-          + (f" per replica, {n_ranks} replicas" if n_ranks > 1 else ""))
+          + (f" per replica, {n_data} replicas" if n_data > 1 else ""))
 
     writer = (SummaryWriter(os.path.join(config.log_dir, config.run_name()))
               if is_main else _NoWriter())
@@ -396,9 +426,9 @@ def _train(config: Config, max_steps: Optional[int], device) -> dict:
     snapshots = ckpt.SnapshotWriter()
 
     def save(directory, epoch, minor=None, block=None):
-        # under ZeRO the snapshot is a collective; rank 0 writes it
+        # under ZeRO or TP the snapshot is a collective; rank 0 writes it
         block = not config.async_checkpoint if block is None else block
-        if is_main or zero is not None:
+        if is_main or zero is not None or mp > 1:
             payload = ckpt.snapshot(
                 model, optimizer, ema, state_epoch,
                 [global_step, supers_in_epoch],
@@ -439,12 +469,12 @@ def _train(config: Config, max_steps: Optional[int], device) -> dict:
             finally:
                 if live is not None:
                     _load_params(model, live)
-        if n_ranks > 1:
-            # every rank's sums (a rank's own shard of the val set)
+        if n_data > 1:
+            # every replica's sums (a replica's own shard of the val set)
             sums = torch.tensor(
                 [tot_loss, tot_correct, tot_n, *tot_conf.ravel()],
                 dtype=torch.float64, device=device)
-            sums = mesh.all_reduce_sum_(sums).cpu().numpy()
+            sums = mesh.all_reduce_sum_(sums, "data").cpu().numpy()
             tot_loss, tot_correct, tot_n = (float(v) for v in sums[:3])
             tot_conf = sums[3:].reshape(ncls, ncls)
         if tot_n == 0:
@@ -576,7 +606,7 @@ def _train(config: Config, max_steps: Optional[int], device) -> dict:
              block=True)
         with zero_mod.gathered(zero):
             weights = {k: v.detach().cpu() for k, v in
-                       model.state_dict().items()}
+                       ckpt.full_state_dict(model).items()}
         if is_main:
             torch.save(weights, final_path)
             _save_statistics(config.run_name(), train_losses_hist,

@@ -39,6 +39,16 @@ averages them. ``zero`` (a ``parallel.zero.ZeroLayout``) replaces the
 gradient all-reduce by ZeRO's reduce-scatter, sliced update and (stage 1)
 all-gather; at stage 3 the step gathers the parameters first and
 releases them after, and the EMA lives in the rank's chunks.
+
+Under a mesh (``mesh.init_mesh``: tensor parallelism over 'model',
+sequence parallelism over 'seq', the JAX step under shard_map) every
+replica reduction above runs over 'data' alone: gradients, BatchNorm
+statistics, losses and correct counts, and the seeds fold in the data
+rank only, so the 'model' and 'seq' ranks of one replica draw the same
+masks. The gradients of the token-sharded transformer stacks are first
+summed over 'seq' (``parallel/sequence.sp_sync_grads``). The global-norm
+clip counts a TP-sharded parameter's squared norm summed over 'model' and
+a replicated one once, so every rank scales by the same factor.
 """
 
 from __future__ import annotations
@@ -55,6 +65,8 @@ from picklebot_tpu_torch.ops.linear import dropout_rng
 from picklebot_tpu_torch.ops.resize import resize_frames
 from picklebot_tpu_torch.parallel import mesh
 from picklebot_tpu_torch.parallel import zero as zero_mod
+from picklebot_tpu_torch.parallel.megatron import tp_dims
+from picklebot_tpu_torch.parallel.sequence import sp_sync_grads
 from picklebot_tpu_torch.train.losses import (LOSSES, LOSSES_PER_SAMPLE,
                                               prepare_labels, smoothed_bce,
                                               smoothed_cross_entropy)
@@ -189,11 +201,12 @@ def make_train_step(model, optimizer, criterion: str, schedule,
                      if stage3 else
                      [(ema[n], p) for n, p in model.named_parameters()])
     dp = mesh.distributed() if data_parallel is None else data_parallel
-    n_ranks = mesh.world() if dp else 1
-    # the rank folded into the seeds only past one replica: at world 1 the
-    # dropout and augmentation draws are those of a run without a group
+    n_ranks = mesh.axis_size("data") if dp else 1
+    # the data rank folded into the seeds only past one replica: at one
+    # the dropout and augmentation draws are those of a run without a
+    # group
     key_seed = (seed if n_ranks == 1
-                else _micro_seed(seed, -1 - mesh.rank()))
+                else _micro_seed(seed, -1 - mesh.axis_index("data")))
     statistics = [b for k, b in model.named_buffers()
                   if k.endswith((".running_mean", ".running_var"))]
     loss_fn, acc_fn = LOSSES[criterion]
@@ -201,6 +214,10 @@ def make_train_step(model, optimizer, criterion: str, schedule,
         loss_fn = (smoothed_cross_entropy(label_smoothing) if criterion == "CE"
                    else smoothed_bce(label_smoothing))
     params = [p for p in model.parameters() if p.requires_grad]
+    sharded = tp_dims(model)
+    tp_params = [i for i, (n, p) in enumerate(
+        (n, p) for n, p in model.named_parameters() if p.requires_grad)
+        if n in sharded]
     generator = torch.Generator(device=device)
 
     def step(epoch, features, labels, position: int = 0):
@@ -238,6 +255,7 @@ def make_train_step(model, optimizer, criterion: str, schedule,
                        "lr": lr}
             if dp:
                 _reduce_replicas(metrics, statistics, n_ranks)
+                sp_sync_grads(model)
             if zero is not None:
                 update = (zero_mod.zero3_update if stage3
                           else zero_mod.zero_update)
@@ -249,11 +267,9 @@ def make_train_step(model, optimizer, criterion: str, schedule,
                     for p in params:
                         if p.grad is None:
                             p.grad = torch.zeros_like(p)
-                    mesh.all_reduce_mean_([p.grad for p in params])
+                    mesh.all_reduce_mean_([p.grad for p in params], "data")
                 if max_grad_norm is not None:
-                    norm = torch.sqrt(sum(
-                        p.grad.float().pow(2).sum()
-                        for p in params if p.grad is not None))
+                    norm = torch.sqrt(sum(_squares(params, tp_params)))
                     scale = torch.clamp(max_grad_norm / (norm + 1e-6),
                                         max=1.0)
                     for p in params:
@@ -271,17 +287,32 @@ def make_train_step(model, optimizer, criterion: str, schedule,
     return step
 
 
+def _squares(params, tp_params):
+    """Each gradient's f32 squared norm, in parameter order; those of the
+    TP-sharded parameters (indices ``tp_params``) summed over 'model' in
+    one all-reduce."""
+    sq = [None if p.grad is None else p.grad.float().pow(2).sum()
+          for p in params]
+    tp = [i for i in tp_params if sq[i] is not None]
+    if tp:
+        total = mesh.all_reduce_sum_(torch.stack([sq[i] for i in tp]),
+                                     "model")
+        for j, i in enumerate(tp):
+            sq[i] = total[j]
+    return [s for s in sq if s is not None]
+
+
 def _reduce_replicas(metrics, statistics, n_ranks):
-    """The replicas' metrics and BatchNorm running statistics, in place:
-    losses averaged and correct counts summed (one all-reduce), running
-    means and variances averaged (one more)."""
+    """The replicas' metrics and BatchNorm running statistics over 'data',
+    in place: losses averaged and correct counts summed (one all-reduce),
+    running means and variances averaged (one more)."""
     a = metrics["loss"].numel()
     both = torch.cat([metrics["loss"].float(), metrics["correct"].float()])
-    mesh.all_reduce_sum_(both)
+    mesh.all_reduce_sum_(both, "data")
     metrics["loss"] = both[:a] / n_ranks
     metrics["correct"] = both[a:].to(metrics["correct"].dtype)
     with torch.no_grad():
-        mesh.all_reduce_mean_(statistics)
+        mesh.all_reduce_mean_(statistics, "data")
 
 
 def make_eval_step(model, criterion: str, policy: DtypePolicy = None,

@@ -96,12 +96,14 @@ def test_mha_auto_on_both_sides_of_the_threshold(rng, monkeypatch):
 
 
 def test_mha_refuses_what_is_not_ported(monkeypatch):
-    """Sequence parallelism names ROADMAP.md and an unknown backend is an
-    error. Train-mode attention dropout runs: on the plain path whatever
-    the backend (the kernels have no dropout path), with a graph, and
-    only with a dropout generator."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_attention.MultiHeadAttention(32, sequence_axis="seq")
+    """An unknown backend is an error; sequence parallelism, ported since,
+    builds (the token-sharded path runs only inside a stack that
+    scattered the tokens: tests/test_torch_sp.py). Train-mode attention
+    dropout runs: on the plain path whatever the backend (the kernels
+    have no dropout path), with a graph, and only with a dropout
+    generator."""
+    assert port_attention.MultiHeadAttention(
+        32, sequence_axis="seq").sequence_axis == "seq"
     with pytest.raises(ValueError, match="backend"):
         port_attention.MultiHeadAttention(32, backend="flash")
     m = port_attention.MultiHeadAttention(32, dropout=0.1, backend="packed")

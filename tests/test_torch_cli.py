@@ -128,9 +128,11 @@ def test_cli_on_cuda_without_a_card_raises(tmp_path):
 
 
 # options refused once and ported since: the resize of A16, the
-# autotuner and cProfile of A17, data parallelism (A18) and ZeRO (A19)
+# autotuner and cProfile of A17, data parallelism (A18), ZeRO (A19),
+# tensor and sequence parallelism (A20.1, A20.2)
 PORTED_SINCE = ("input_size", "autotune", "profile", "data_parallel",
-                "dcn_data_parallel", "zero_sharding")
+                "dcn_data_parallel", "zero_sharding", "model_parallel",
+                "sequence_parallel")
 
 
 @pytest.mark.parametrize("option,value", [
@@ -144,7 +146,8 @@ def test_unported_options_are_refused_naming_roadmap(tmp_path, option,
     """Each option the trainer does not port is refused by name; one that
     has been ported since (``input_size``, the resize of A16; ``autotune``
     and ``profile``, A17; ``data_parallel`` and ``dcn_data_parallel``,
-    A18; ``zero_sharding``, A19) passes the check instead."""
+    A18; ``zero_sharding``, A19; ``model_parallel`` and
+    ``sequence_parallel``, A20.1-2) passes the check instead."""
     config = dataclasses.replace(load_config(_config(tmp_path, "MobileViT")),
                                  **{option: value})
     if option in PORTED_SINCE:

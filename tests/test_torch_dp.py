@@ -541,8 +541,10 @@ def test_autotune_broadcasts_rank_zeros_winner(tmp_path, mode):
         assert "RANK1 FLAG True calls=0" in outs[1], outs[1][-2000:]
     else:
         # the -1 sentinel: rank 0 raises its own error, rank 1 a RuntimeError
-        assert "RANK0 RAISED every candidate failed calls=1" in outs[0]
-        assert "RANK1 RAISED autotune failed on rank 0" in outs[1]
+        assert "RANK0 RAISED every candidate failed calls=1" in outs[0], \
+            outs[0][-2000:]
+        assert "RANK1 RAISED autotune failed on rank 0" in outs[1], \
+            outs[1][-2000:]
 
 
 # --------------------------------------------------------------------------

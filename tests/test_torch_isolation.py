@@ -52,7 +52,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 "train.checkpoint", "export", "ops.resize", "ops.library",
                 "data.native", "utils.summary", "utils.profiling",
                 "utils.autotune", "utils.build", "parallel.mesh",
-                "parallel.zero"):
+                "parallel.zero", "parallel.megatron", "parallel.sequence",
+                "ops.ring_attention"):
         assert f"picklebot_tpu_torch.{mod}" in res["modules"]
     assert res["launches"] == {"pool": 0, "main": 0}
     assert res["flash_launches"] == {"packed": 0, "heads": 0, "dq": 0,
@@ -73,11 +74,12 @@ def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
 
 def test_unported_model_points_to_roadmap():
     """Kept under its first name: every registry model is ported now, so
-    it holds another refusal, a trainer option not ported yet, to its
-    ROADMAP.md item."""
+    it holds another refusal, a trainer option not ported yet
+    (pipeline parallelism, since model_parallel is), to its ROADMAP.md
+    item."""
     from picklebot_tpu_torch.train.loop import train
     from picklebot_tpu_torch.utils.config import Config
     with pytest.raises(NotImplementedError,
-                       match="model_parallel.*ROADMAP.*A20"):
-        train(Config(model_name="MobileNetLarge3D", model_parallel=2),
+                       match="pipeline_parallel.*ROADMAP.*A20"):
+        train(Config(model_name="MobileNetLarge3D", pipeline_parallel=2),
               device="cpu")

@@ -110,8 +110,8 @@ def test_eval_logits_match_jax_bf16(rng):
 
 def test_train_mode_is_refused():
     """Train mode runs: the forward advances every BatchNorm's statistics
-    and keeps a graph that reaches every parameter. What train mode still
-    refuses, sequence parallelism, names ROADMAP.md."""
+    and keeps a graph that reaches every parameter. What the model still
+    refuses, pipeline parallelism, names ROADMAP.md."""
     m = MobileViT(num_classes=13, attention_backend="packed", **XXS).train()
     bns = [b for b in m.modules() if isinstance(b, BatchNorm)]
     out = m(torch.rand(1, 4, 32, 32, 3))
@@ -120,5 +120,5 @@ def test_train_mode_is_refused():
     out.float().pow(2).sum().backward()
     assert all(p.grad is not None for p in m.parameters())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        initialize_model(Config(model_name="MobileViT", sequence_parallel=2,
+        initialize_model(Config(model_name="MobileViT", pipeline_parallel=2,
                                 **XXS).validate())
