@@ -13,11 +13,13 @@
     python3 chip_smoke.py --only dp            # data parallelism and ZeRO
     python3 chip_smoke.py --only layouts       # tensor and sequence
                                                # parallelism on MobileViT-s
+    python3 chip_smoke.py --only pp_ep         # pipeline and expert
+                                               # parallelism on MobileViT-s
     python3 chip_smoke.py --only kernels serve # or any of kernels, fused,
                                                # conv, flash, serve, train,
                                                # trainx, timing, stream, v2,
                                                # bench, surface, tooling,
-                                               # dp, layouts
+                                               # dp, layouts, pp_ep
     python3 chip_smoke.py --ab-forward DIR     # Large3D's eager forward of
                                                # the tree at DIR and of this
                                                # one, in turns
@@ -229,7 +231,29 @@ kernels summary):
               gradients, f32 and bf16; the TP run's .pth loaded strictly
               in one process and served (exact launches). The 4-rank
               model 2 x seq 2 run is left to the CPU tests
- 15. summary  the collates of the whole run (none on numpy), {"kernels":
+ 15. pp_ep    pipeline and expert parallelism on the one card, the layouts
+              phase's model, batch, steps, lr and clip, two processes of
+              this script over gloo (--ppep-rank): at pipe 2 with 2 and 4
+              pipeline microbatches (stages 1 and 2 pipeline, stage 3 runs
+              the plain loop), and at expert 2 on MobileViT-s with 4
+              experts, top-2, capacity factor 1.25, dispatch 'replicated'
+              and 'tokens' (stage 2, N = 147, falls back to 'replicated'),
+              each in f32 (TF32 off, AdamW) and bf16 (AdamW8bit), against
+              the same steps in one process on the card: f32 first-step
+              gradients within 1e-5 of max|ref| of the one-process step
+              that computes the layout's arithmetic (the stacks in the
+              same microbatches; the experts as the ranks compute them),
+              and of the plain reference (the unsharded step; for
+              'tokens' the experts on the ranks' token groups) within
+              twice the floor measured between the two; bf16 losses
+              within the train bounds; the ranks' weights equal; every rank's launches of
+              rows 2, 3, 4 and 7 exact (PP: a pipelined stack's layers run
+              on all M + 1 ticks, forward and backward); collective counts
+              and bytes per step by kind against the figures from the
+              shapes; the EP run's .pth loaded strictly in one process and
+              served (exact launches). The 4-rank pipe 2 x model 2 and
+              pipe 2 x seq 2 runs are left to the CPU tests
+ 16. summary  the collates of the whole run (none on numpy), {"kernels":
               [...]}, the card line, and last {"ok": true, "device": ...}
 Per-shape numbers also go to chiprun_out/chip_smoke.json. Without CUDA it
 exits with code 2 and prints no result. Imports nothing of JAX.
@@ -241,6 +265,7 @@ import concurrent.futures
 import contextlib
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -496,12 +521,40 @@ LAYOUT_FLOOR_FACTOR = 2.0
 LAYOUT_RANK_TIMEOUT = 240
 # MobileViT-s's transformer stages at bs 8: (N, embed width, FFN width
 # multiple, layers); 8 heads of 16; the collective figures of the layouts
-# phase follow from them
+# and pp_ep phases follow from them
 VIT_STAGES = ((784, 144, 2, 2), (147, 192, 4, 4), (32, 240, 4, 3))
+# the pp_ep phase: the layouts phase's model, batch, steps, lr and clip
+# over two processes of this script sharing the card over gloo, at pipe 2
+# (mode "pp": pipeline_microbatches 2 and 4; stages 1 and 2 pipeline,
+# stage 3's depth 3 runs the plain loop) and at expert 2 (mode "ep":
+# MobileViT-s with PPEP_MOE's experts, dispatch 'replicated' and
+# 'tokens'), each job (model options, dtype, optimizer) against the same
+# steps in one process on the card. f32: each run against the
+# one-process step with the layout's arithmetic (``stacks_in_microbatches``
+# for PP, ``moe_as_ranks`` for EP) within LAYOUT_F32_REL_TOL, and against
+# its plain reference (the one-process step; for 'tokens' the one that
+# routes the ranks' token groups, ``moe_in_groups``) within
+# LAYOUT_FLOOR_FACTOR times the floor this run measures between the two
+# one-process steps, and never tighter than LAYOUT_F32_REL_TOL (the
+# split reassociates batch sums that reach the BatchNorm affine terms, as
+# the layouts phase found); bf16 (AdamW8bit): the losses within
+# TRAIN_LOSS_REL_TOL. Flash launches per PP train step: a
+# pipelined stack runs each of its rank's d/2 layers on every one of the
+# M + 1 ticks, forward and backward; the plain loop d.
+PPEP_MOE = {"moe_experts": 4, "moe_top_k": 2, "moe_capacity_factor": 1.25}
+PPEP_JOBS = {
+    "pp": {f"m{m}_{dtype}": ({"pipeline_microbatches": m}, dtype, opt)
+           for m in (2, 4)
+           for dtype, opt in (("f32", "adamw"), ("bf16", "adamw8bit"))},
+    "ep": {f"{short}_{dtype}": ({"moe_dispatch": dispatch}, dtype, opt)
+           for short, dispatch in (("rep", "replicated"), ("tok", "tokens"))
+           for dtype, opt in (("f32", "adamw"), ("bf16", "adamw8bit"))}}
+PPEP_FLASH_PP = {m: sum((d // 2) * (m + 1) if d % 2 == 0 else d
+                        for *_, d in VIT_STAGES) for m in (2, 4)}
 # what --only can pick; with no --only every phase runs
 PHASES = ("kernels", "fused", "conv", "flash", "serve", "train", "trainx",
           "timing", "stream", "v2", "bench", "surface", "tooling", "dp",
-          "layouts")
+          "layouts", "pp_ep")
 
 
 def emit(obj):
@@ -4423,20 +4476,18 @@ def layout_batch():
             np.asarray(labels).reshape(LAYOUT_STEPS, 1, 8))
 
 
-def layout_setup(dtype, optimizer, mode=None):
-    """MobileViT-s (seed 0) on the card with its train step: at the
-    mesh's axes for ``mode``, else the one-process model."""
+def layout_setup(dtype, optimizer, **model_kw):
+    """MobileViT-s (seed 0) on the card with its train step, built with
+    ``model_kw`` (its mesh axes, its experts; none: the one-process
+    model)."""
     import torch
     from picklebot_tpu_torch.core.policy import DtypePolicy
     from picklebot_tpu_torch.models.mobilevit import (MOBILEVIT_CONFIGS,
                                                       MobileViT)
     from picklebot_tpu_torch.train.optim import OPTIMIZERS
     from picklebot_tpu_torch.train.step import make_train_step
-    axes = LAYOUT_MODES.get(mode, {})
     model = MobileViT(num_classes=13, seed=0, **MOBILEVIT_CONFIGS["s"],
-                      model_axis="model" if "model" in axes else None,
-                      sequence_axis="seq" if "seq" in axes else None
-                      ).to("cuda")
+                      **model_kw).to("cuda")
     policy = DtypePolicy.bf16() if dtype == "bf16" else DtypePolicy.f32()
     opt = OPTIMIZERS[optimizer](model.parameters(), weight_decay=5e-4)
     step = make_train_step(model, opt, "CE", lambda epoch: LAYOUT_LR, policy,
@@ -4447,13 +4498,14 @@ def layout_setup(dtype, optimizer, mode=None):
 
 def layout_steps(model, step, feats, labels):
     """LAYOUT_STEPS steps: per step the losses, the collectives (counted
-    from 0 for the step) and the full weights after it (the shards
-    gathered); the first step's gradients (gathered); host ms per step."""
+    from 0 for the step) and the full weights after it (the TP or EP
+    shards gathered); the first step's gradients (gathered); host ms per
+    step."""
     import torch
     from picklebot_tpu_torch.parallel import mesh
-    from picklebot_tpu_torch.parallel.megatron import gather_tensor, tp_dims
+    from picklebot_tpu_torch.parallel.megatron import gather_tensor, layout
     from picklebot_tpu_torch.train.checkpoint import full_state_dict
-    dims = tp_dims(model)
+    lay = layout(model)
     out = {"losses": [], "collectives": [], "states": [], "ms": []}
     for s in range(LAYOUT_STEPS):
         mesh.reset_counts()
@@ -4464,8 +4516,8 @@ def layout_steps(model, step, feats, labels):
         out["collectives"].append(mesh.counts())
         out["losses"].append(m["loss"].float().cpu())
         if s == 0:
-            out["grads"] = {n: (gather_tensor(p.grad, dims[n]) if n in dims
-                                else p.grad).float().cpu().clone()
+            out["grads"] = {n: (gather_tensor(p.grad, lay[n][1], lay[n][0])
+                                if n in lay else p.grad).float().cpu().clone()
                             for n, p in model.named_parameters()}
         out["states"].append({k: v.detach().cpu().clone()
                               for k, v in full_state_dict(model).items()})
@@ -4588,7 +4640,10 @@ def layout_rank_main(args):
     with deterministic():
         for name, dtype, optimizer in LAYOUT_JOBS:
             torch.cuda.reset_peak_memory_stats()
-            model, step = layout_setup(dtype, optimizer, mode)
+            model, step = layout_setup(
+                dtype, optimizer, **{{"model": "model_axis",
+                                      "seq": "sequence_axis"}[a]: a
+                                     for a in LAYOUT_MODES[mode]})
             zero_counters(counters)
             run = layout_steps(model, step, feats, labels)
             launches = read_counters(counters)
@@ -4621,13 +4676,14 @@ def layout_rank_main(args):
     return 0
 
 
-def layout_spawn(mode, out_dir, timeout):
-    """The two processes of ``mode`` (``--layout-rank``): outputs and exit
-    codes; each killed past ``timeout`` seconds."""
+def layout_spawn(mode, out_dir, timeout, kind="layout"):
+    """The two processes of ``mode`` (``--layout-rank``, or with ``kind``
+    "ppep" ``--ppep-rank``): outputs and exit codes; each killed past
+    ``timeout`` seconds."""
     port = free_port()
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--layout-rank", str(r),
-         "--layout-mode", mode, "--dp-port", str(port), "--dp-out", out_dir],
+        [sys.executable, os.path.abspath(__file__), f"--{kind}-rank", str(r),
+         f"--{kind}-mode", mode, "--dp-port", str(port), "--dp-out", out_dir],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         cwd=ROOT) for r in range(2)]
     outs = []
@@ -4674,14 +4730,15 @@ def ffn_in_halves(n=2):
         FeedForward.forward = saved
 
 
-def layout_reference(dtype, optimizer, feats, labels, halves=False):
+def layout_reference(dtype, optimizer, feats, labels, patch=None,
+                     **model_kw):
     """The same steps in this process, no process group: the one-process
-    MobileViT-s on the card, deterministic algorithms on; with ``halves``
-    its FFNs in the two slices of model 2 (``ffn_in_halves``)."""
+    MobileViT-s (built with ``model_kw``) on the card, deterministic
+    algorithms on, inside ``patch`` if given (``ffn_in_halves``: its
+    FFNs in the two slices of model 2)."""
     import torch
-    with deterministic(), (ffn_in_halves() if halves
-                           else contextlib.nullcontext()):
-        model, step = layout_setup(dtype, optimizer)
+    with deterministic(), (patch or contextlib.nullcontext()):
+        model, step = layout_setup(dtype, optimizer, **model_kw)
         run = layout_steps(model, step, feats, labels)
     del model, step
     torch.cuda.empty_cache()
@@ -4755,7 +4812,8 @@ def phase_layouts(counters, gpu_line):
             for name, dtype, opt in LAYOUT_JOBS}
     # the f32 floor: the one-process step with the FFN in two slices
     # against the plain one
-    halves = layout_reference("f32", "adamw", feats, labels, halves=True)
+    halves = layout_reference("f32", "adamw", feats, labels,
+                              patch=ffn_in_halves())
     res["f32_floor"] = layout_diff(halves, refs["f32"], "f32")
     for key in ("ok", "grad_bound"):     # a reading, not a check
         res["f32_floor"].pop(key)
@@ -4861,6 +4919,425 @@ def phase_layouts(counters, gpu_line):
     emit({"phase": "layouts", "seconds": res["seconds"]})
     if failed:
         raise AssertionError(f"layouts: {failed} against the one-process "
+                             "runs past the bounds (their JSON lines above)")
+    return res
+
+
+def ppep_stack_params(stages):
+    """The parameters of MobileViT-s's transformer stacks at ``stages``
+    (VIT_STAGES rows): per layer qkv (3*128, E), out (E, 128) and the
+    FFN's two (E*mult, E) weights."""
+    return sum(d * (4 * 128 * e + 2 * e * mult * e)
+               for n, e, mult, d in stages)
+
+
+def ppep_capacity(n):
+    """MoEFeedForward.capacity(n) at PPEP_MOE's 4 experts, top-2, 1.25."""
+    return max(1, math.ceil(2 * n * 1.25 / 4))
+
+
+def ppep_collectives_want(mode, job, dtype, stages=VIT_STAGES, seqs=64):
+    """The collectives of one train step (one bs-8 microbatch) of a pp_ep
+    job, worked out from VIT_STAGES: {kind: {count, bytes}}. Activations
+    are the stacks' (64, N, E) in the compute dtype. PP at M microbatches
+    over 2 stages: a stack whose depth is even pipelines, with M hops of
+    one (64/M, N, E) microbatch forward and M back, the exit's all-reduce
+    forward and the entry's backward; then one f32 all-reduce over 'pipe'
+    of those stacks' parameter gradients. EP 'replicated': per MoE layer
+    g's all-reduce of the output forward and f's of the input's gradient
+    and of the router's (4, E) f32 one backward. EP 'tokens': a stage
+    whose N is even shards its tokens: per layer the exit's all-gather
+    forward and the entry's backward, one all-reduce of the 8 f32 routing
+    statistics, the router's gradient, and two all-to-alls of the (4, 64,
+    cap(N/2), E) slots each way; stage 2 (N = 147) falls back to
+    'replicated'. Both EP modes: the clip's one all-reduce of the 18
+    expert banks' f32 squares. ``stages`` and ``seqs`` (sequences in the
+    batch, 8 a clip) give other shapes the same rules."""
+    elt = 2 if dtype == "bf16" else 4
+    act = {n: seqs * n * e * elt for n, e, _, _ in stages}
+    want = {}
+
+    def add(kind, count, nbytes):
+        c = want.setdefault(kind, {"count": 0, "bytes": 0})
+        c["count"] += count
+        c["bytes"] += nbytes
+
+    if mode == "pp":
+        micro = PPEP_JOBS["pp"][job][0]["pipeline_microbatches"]
+        piped = [s for s in stages if s[3] % 2 == 0]
+        for n, _, _, _ in piped:
+            add("collective-permute", 2 * micro, 2 * act[n])
+            add("all-reduce", 2, 2 * act[n])
+        add("all-reduce", 1, 4 * ppep_stack_params(piped))
+        return want
+    tokens = PPEP_JOBS["ep"][job][0]["moe_dispatch"] == "tokens"
+    for n, e, _, d in stages:
+        if tokens and n % 2 == 0:
+            slots = 4 * seqs * ppep_capacity(n // 2) * e * elt
+            add("all-gather", 2 * d, 2 * d * act[n])
+            add("all-reduce", 2 * d, d * (8 * 4 + 4 * e * 4))
+            add("all-to-all", 4 * d, 4 * d * slots)
+        else:
+            add("all-reduce", 3 * d, d * (2 * act[n] + 4 * e * 4))
+    add("all-reduce", 1, 4 * 2 * sum(d for *_, d in stages))
+    return want
+
+
+def ppep_model_kw(mode, job_kw=None, distributed=True):
+    """MobileViT-s's options for a pp_ep job: the experts of the ep mode
+    (PPEP_MOE), the job's options and, when ``distributed``, the mode's
+    mesh axis."""
+    kw = dict(job_kw or {})
+    if mode == "ep":
+        kw.update(PPEP_MOE)
+    if not distributed:
+        kw.pop("pipeline_microbatches", None)
+    elif mode == "pp":
+        kw["pipeline_axis"] = "pipe"
+    else:
+        kw["expert_axis"] = "expert"
+    return kw
+
+
+def ppep_rank_main(args):
+    """One rank of the pp_ep phase (``--ppep-rank``): gloo on cuda:0, the
+    mesh of ``--ppep-mode`` (pipe 2 or expert 2), each of its
+    PPEP_JOBS under deterministic algorithms. Rank 0 saves the runs (and
+    the f32 'replicated' EP run's full weights as a .pth)."""
+    import hashlib
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    from picklebot_tpu_torch.parallel import mesh
+    rank, mode = args.ppep_rank, args.ppep_mode
+    mesh.init_distributed(f"localhost:{args.dp_port}", backend="gloo",
+                          device="cuda:0", rank=rank, world_size=2)
+    mesh.init_mesh(**{"pipe" if mode == "pp" else "expert": 2})
+    counters = all_counters()
+    feats, labels = layout_batch()
+    results = {}
+    with deterministic():
+        for name, (job_kw, dtype, optimizer) in PPEP_JOBS[mode].items():
+            torch.cuda.reset_peak_memory_stats()
+            model, step = layout_setup(dtype, optimizer,
+                                       **ppep_model_kw(mode, job_kw))
+            zero_counters(counters)
+            run = layout_steps(model, step, feats, labels)
+            launches = read_counters(counters)
+            digest = hashlib.sha256()
+            for k in sorted(run["states"][-1]):
+                digest.update(run["states"][-1][k].numpy().tobytes())
+            if rank == 0:
+                torch.save(run, os.path.join(args.dp_out,
+                                             f"{mode}_{name}.pt"))
+                if name == "rep_f32":
+                    torch.save(run["states"][-1],
+                               os.path.join(args.dp_out, "ep.pth"))
+            results[name] = {
+                "launches": launches, "digest": digest.hexdigest(),
+                "pp_engaged": [n for n, m in model.named_modules()
+                               if getattr(m, "pp_engaged", False)],
+                "step_ms_host": run["ms"],
+                "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                "local_params": sum(p.numel() for p in model.parameters()),
+                "collectives": run["collectives"]}
+            del model, step, run
+            torch.cuda.empty_cache()
+    with open(os.path.join(args.dp_out, f"{mode}_rank{rank}.json"),
+              "w") as f:
+        json.dump(results, f)
+    print(json.dumps({"ppep_rank": rank, "mode": mode}))
+    dist.destroy_process_group()
+    return 0
+
+
+@contextlib.contextmanager
+def stacks_in_microbatches(m, stages=2):
+    """Within the block every MobileViT transformer stack whose depth
+    splits over ``stages`` runs its layers on the batch in ``m``
+    microbatches, one after the other, and concatenates them: the
+    pipeline's arithmetic in one process, to tell a fault of the schedule
+    from f32 reassociation. A patch inside this script; the port has no
+    such switch."""
+    import torch
+    from picklebot_tpu_torch.models.mobilevit import TransformerStack
+    saved = TransformerStack.forward
+
+    def forward(self, x, kernels=True):
+        if len(self.layers) % stages or x.shape[0] % m:
+            return saved(self, x, kernels)
+        outs = []
+        for h in x.chunk(m):
+            for attn, ff in self.pairs():
+                h = attn(h, kernels=kernels) + h
+                h = ff(h) + h
+            outs.append(h)
+        return torch.cat(outs)
+    TransformerStack.forward = forward
+    try:
+        yield
+    finally:
+        TransformerStack.forward = saved
+
+
+@contextlib.contextmanager
+def moe_in_groups(size=2):
+    """Within the block every MoE feed-forward whose token count splits
+    over ``size`` routes the tokens regrouped as ``size`` blocks (the
+    'tokens' dispatch's rank-local groups) in one process: the JAX test's
+    reference for that mode. A patch inside this script."""
+    from picklebot_tpu_torch.ops.moe import MoEFeedForward
+    saved = MoEFeedForward.forward
+
+    def forward(self, x):
+        *lead, n, d = x.shape
+        if n % size:
+            return saved(self, x)
+        return saved(self, x.reshape(*lead, size, n // size, d)).reshape(
+            x.shape)
+    MoEFeedForward.forward = forward
+    try:
+        yield
+    finally:
+        MoEFeedForward.forward = saved
+
+
+@contextlib.contextmanager
+def moe_as_ranks(size=2):
+    """Within the block every MoE feed-forward computes as the ``size``
+    ranks of expert parallelism do, in one process: per rank its own
+    routing ('replicated': of every token; 'tokens', where the count
+    splits: of its block, with the routing statistics averaged over the
+    ranks), its experts' slots on its slice of the banks, 1/size of the
+    aux loss's gradient ('replicated'), and the ranks' partial outputs
+    summed ('replicated') or the slots exchanged as the two all-to-alls
+    move them and the blocks concatenated ('tokens'). Each rank's input
+    gradient is summed inside its own branch before the ranks' meet, as
+    the collectives sum them: the layout's arithmetic in one process, to
+    tell a fault of the layout from f32 reassociation. A patch inside this
+    script; the port has no such switch."""
+    import torch
+    from picklebot_tpu_torch.ops.moe import MoEFeedForward
+    saved = MoEFeedForward.forward
+
+    def forward(self, x):
+        *lead, n, d = x.shape
+        e, g = self.n_experts, math.prod(lead)
+        el = e // size
+        banks = [(self.w1[..., s * el:(s + 1) * el],
+                  self.w2[..., s * el:(s + 1) * el]) for s in range(size)]
+        xv = x.view_as(x)      # where the ranks' input gradients meet
+        if self.dispatch == "tokens" and n % size == 0:
+            nl = n // size
+            cap = self.capacity(nl)
+            per, stats = [], None
+            for r in range(size):
+                xt = xv.narrow(-2, r * nl, nl).reshape(g, nl, d)
+                choices, frac, prob = self._routing(xt, self.router)
+                st = torch.cat([frac, prob]).detach()
+                stats = st if stats is None else stats + st
+                per.append((xt, choices, prob))
+            frac_g, prob_g = (stats / size).split(e)
+            aux, sent = None, []
+            for xt, choices, prob in per:
+                a = e * (frac_g * prob_g).sum() + (e / size) * (
+                    frac_g * (prob - prob.detach())).sum()
+                aux = a if aux is None else aux + a
+                sent.append(self._dispatch(xt, choices, cap, 0, e))
+            # expert rank s: every rank's slots of its experts, rank order
+            ys = [self._experts(torch.cat([xin[s * el:(s + 1) * el]
+                                           for xin, _ in sent], 1),
+                                *banks[s]) for s in range(size)]
+            outs = []
+            for r, ((xt, choices, _), (_, where)) in enumerate(zip(per,
+                                                                  sent)):
+                yo = torch.cat([y[:, r * g:(r + 1) * g] for y in ys], 0)
+                outs.append(self.drop2(self._combine(
+                    yo, choices, where, xt.dtype)).reshape(*lead, nl, d))
+            self._publish(aux)
+            return torch.cat(outs, dim=-2)
+        cap = self.capacity(n)
+        out, aux = None, None
+        for r in range(size):
+            xt = xv.reshape(g, n, d)
+            choices, frac, prob = self._routing(xt, self.router)
+            a = e * (frac * prob).sum()
+            a = a / size + (a * (1.0 - 1.0 / size)).detach()
+            aux = a if aux is None else aux + a
+            xin, where = self._dispatch(xt, choices, cap, r * el, el)
+            part = self._combine(self._experts(xin, *banks[r]), choices,
+                                 where, xt.dtype)
+            out = part if out is None else out + part
+        self._publish(aux)
+        return self.drop2(out).reshape(*lead, n, d)
+    MoEFeedForward.forward = forward
+    try:
+        yield
+    finally:
+        MoEFeedForward.forward = saved
+
+
+def ppep_reference(dtype, optimizer, feats, labels, mode=None, patch=None,
+                   job_kw=None):
+    """``layout_reference`` of the one-process MobileViT-s of ``mode``
+    (the ep mode's experts, ``job_kw``)."""
+    return layout_reference(dtype, optimizer, feats, labels, patch,
+                            **ppep_model_kw(mode, job_kw, distributed=False))
+
+
+def phase_pp_ep(counters, gpu_line):
+    """Pipeline and expert parallelism on the one card (module
+    docstring)."""
+    import torch
+    from picklebot_tpu_torch.models.mobilevit import (MOBILEVIT_CONFIGS,
+                                                      MobileViT)
+    t_start = time.perf_counter()
+    feats, labels = layout_batch()
+    res = {"card": gpu_line, "modes": {}}
+    failed = []
+    refs = {}
+    for dtype, opt in (("f32", "adamw"), ("bf16", "adamw8bit")):
+        refs[("pp", dtype)] = ppep_reference(dtype, opt, feats, labels)
+        refs[("ep", dtype)] = ppep_reference(dtype, opt, feats, labels, "ep")
+    # the one-process steps that reproduce each layout's arithmetic: the
+    # stacks in microbatches, the experts in the ranks' token groups
+    for micro in (2, 4):
+        refs[("pp", f"m{micro}")] = ppep_reference(
+            "f32", "adamw", feats, labels,
+            patch=stacks_in_microbatches(micro))
+    refs[("ep", "groups")] = ppep_reference("f32", "adamw", feats, labels,
+                                            "ep", patch=moe_in_groups())
+    for short, dispatch in (("rep", "replicated"), ("tok", "tokens")):
+        refs[("ep", f"{short}_ranks")] = ppep_reference(
+            "f32", "adamw", feats, labels, "ep", patch=moe_as_ranks(),
+            job_kw={"moe_dispatch": dispatch})
+    # the f32 floors: each layout's arithmetic in one process against the
+    # reference it is held to
+    floors = {}
+    for name, got, ref in (
+            ("m2", ("pp", "m2"), ("pp", "f32")),
+            ("m4", ("pp", "m4"), ("pp", "f32")),
+            ("rep", ("ep", "rep_ranks"), ("ep", "f32")),
+            ("tok", ("ep", "tok_ranks"), ("ep", "groups"))):
+        d = layout_diff(refs[got], refs[ref], "f32")
+        floors[name] = d["grad_max_rel_err"]
+        res[f"f32_floor_{name}"] = {k: v for k, v in d.items()
+                                    if k not in ("ok", "grad_bound")}
+    emit({"phase": "pp_ep", "part": "f32_floors", **floors})
+    with tempfile.TemporaryDirectory(prefix="pp_ep_") as out_dir:
+        for mode in ("pp", "ep"):
+            t0 = time.perf_counter()
+            outs, rcs = layout_spawn(mode, out_dir, LAYOUT_RANK_TIMEOUT,
+                                     kind="ppep")
+            spawn_s = time.perf_counter() - t0
+            if any(rcs):
+                raise AssertionError(f"pp_ep {mode} ranks exited {rcs}:\n"
+                                     + "\n".join(o[-3000:] for o in outs))
+            ranks = []
+            for r in range(2):
+                with open(os.path.join(out_dir, f"{mode}_rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+            checks = {}
+            for name, (job_kw, dtype, _) in PPEP_JOBS[mode].items():
+                flash_n = (PPEP_FLASH_PP[job_kw["pipeline_microbatches"]]
+                           if mode == "pp" else sum(VIT_PACKED.values()))
+                want = launches_wanted(
+                    fused={"main": 7 * LAYOUT_STEPS},
+                    flash={"packed": flash_n * LAYOUT_STEPS,
+                           "dq": flash_n * LAYOUT_STEPS,
+                           "dkv": flash_n * LAYOUT_STEPS},
+                    conv={"fwd": 6 * LAYOUT_STEPS, "dx": 6 * LAYOUT_STEPS})
+                coll = ppep_collectives_want(mode, name, dtype)
+                engaged = (["trunk.0.1.transformer", "trunk.1.1.transformer"]
+                           if mode == "pp" else [])
+                for r in range(2):
+                    got = ranks[r][name]
+                    if got["launches"] != want:
+                        raise AssertionError(
+                            f"pp_ep {mode} {name} rank {r} launches "
+                            f"{got['launches']}, want {want}")
+                    if got["pp_engaged"] != engaged:
+                        raise AssertionError(
+                            f"pp_ep {mode} {name} rank {r}: pipelined "
+                            f"stacks {got['pp_engaged']}, want {engaged}")
+                    for s, c in enumerate(got["collectives"]):
+                        c = {k: v for k, v in c.items() if v["count"]}
+                        if c != coll:
+                            raise AssertionError(
+                                f"pp_ep {mode} {name} rank {r} step {s} "
+                                f"collectives {c}, want {coll}")
+                if ranks[0][name]["digest"] != ranks[1][name]["digest"]:
+                    raise AssertionError(f"pp_ep {mode} {name}: the ranks' "
+                                         "weights differ")
+                run = torch.load(os.path.join(out_dir, f"{mode}_{name}.pt"),
+                                 weights_only=False)
+                if dtype == "bf16":
+                    checks[name] = layout_diff(run, refs[(mode, "bf16")],
+                                               "bf16")
+                else:
+                    # the plain reference at twice the floor, the
+                    # layout's own arithmetic at LAYOUT_F32_REL_TOL
+                    same, ref = {
+                        "m2_f32": ("m2", ("pp", "f32")),
+                        "m4_f32": ("m4", ("pp", "f32")),
+                        "rep_f32": ("rep_ranks", ("ep", "f32")),
+                        "tok_f32": ("tok_ranks", ("ep", "groups"))}[name]
+                    floor = floors[same.split("_")[0]]
+                    bound = max(LAYOUT_F32_REL_TOL,
+                                LAYOUT_FLOOR_FACTOR * floor)
+                    checks[name] = layout_diff(run, refs[ref], "f32", bound)
+                    checks[f"{name}_vs_{same}"] = layout_diff(
+                        run, refs[(mode, same)], "f32")
+                checks[name]["collectives_per_step"] = coll
+            failed += [f"{mode} {k}" for k, c in checks.items()
+                       if not c["ok"]]
+            mres = {"checks": checks, "spawn_seconds": spawn_s,
+                    "launches": {f"rank{r}": {n: ranks[r][n]["launches"]
+                                              for n in PPEP_JOBS[mode]}
+                                 for r in range(2)},
+                    "by_job": {n: {k: [ranks[r][n][k] for r in range(2)]
+                                   for k in ("step_ms_host",
+                                             "peak_memory_bytes",
+                                             "local_params")}
+                               for n in PPEP_JOBS[mode]},
+                    "note": "two processes share one card: step times are "
+                            "not a speed figure"}
+            if mode == "ep":
+                # the EP run's .pth (full leaves) in one process: strict
+                # load, then serve on the card with expert_parallel in the
+                # config (serve takes the replicated equivalent)
+                pth = os.path.join(out_dir, "ep.pth")
+                model = MobileViT(num_classes=13, seed=1,
+                                  **MOBILEVIT_CONFIGS["s"], **PPEP_MOE)
+                model.load_state_dict(torch.load(pth, weights_only=True),
+                                      strict=True)
+                mres["one_process_params"] = sum(
+                    p.numel() for p in model.parameters())
+                cfg = serve_config("MobileViT", **MOBILEVIT_CONFIGS["s"],
+                                   attention_backend="auto",
+                                   expert_parallel=2, **PPEP_MOE)
+                launches, serve_s, n_preds, evaluated = serve_run(
+                    cfg, model, counters, pth=pth)
+                packed = sum(VIT_PACKED.values())
+                swant = launches_wanted(fused={"main": 14},
+                                        flash={"packed": 2 * packed},
+                                        conv={"fwd": 12})
+                if launches != swant:
+                    raise AssertionError(f"pp_ep ep .pth serve: launches "
+                                         f"{launches}, want {swant}")
+                mres["serve_pth"] = {"predictions": n_preds,
+                                     "evaluated": evaluated,
+                                     "launches": launches,
+                                     "serve_wall_s": serve_s}
+            emit({"phase": "pp_ep", "mode": mode, **mres})
+            res["modes"][mode] = mres
+    res["four_ranks"] = ("pipe 2 x model 2 and pipe 2 x seq 2 are left to "
+                         "the CPU tests (tests/test_torch_pp.py::"
+                         "test_pp_composes_with_tp_and_sp)")
+    res["seconds"] = time.perf_counter() - t_start
+    emit({"phase": "pp_ep", "seconds": res["seconds"]})
+    if failed:
+        raise AssertionError(f"pp_ep: {failed} against the one-process "
                              "runs past the bounds (their JSON lines above)")
     return res
 
@@ -5015,7 +5492,9 @@ def parse_args(argv):
         "processes on the card over gloo, the sharded predictor, the "
         "autotuner's broadcast), layouts (tensor and sequence "
         "parallelism on MobileViT-s: two processes on the card over gloo "
-        "against one, ring attention, the TP run's .pth served). A "
+        "against one, ring attention, the TP run's .pth served), pp_ep "
+        "(pipeline and expert parallelism on MobileViT-s: two processes "
+        "on the card over gloo against one, the EP run's .pth served). A "
         "partial run prints no kernels summary")
     ap.add_argument(
         "--ab-forward", metavar="DIR", default=None,
@@ -5033,6 +5512,11 @@ def parse_args(argv):
     ap.add_argument("--layout-rank", type=int, default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--layout-mode", choices=tuple(LAYOUT_MODES),
+                    help=argparse.SUPPRESS)
+    # one rank of the pp_ep phase (the phase starts them)
+    ap.add_argument("--ppep-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--ppep-mode", choices=tuple(PPEP_JOBS),
                     help=argparse.SUPPRESS)
     return ap.parse_args(argv)
 
@@ -5054,6 +5538,8 @@ def main(argv=None):
         return dp_rank_main(args)
     if args.layout_rank is not None:
         return layout_rank_main(args)
+    if args.ppep_rank is not None:
+        return ppep_rank_main(args)
     from picklebot_tpu_torch.utils.build import build_all
 
     gpu_line = nvidia_smi_line()
@@ -5221,6 +5707,10 @@ def main(argv=None):
     if selected("layouts"):
         layouts = phase_layouts(counters, gpu_line)
         seconds["layouts"] = layouts["seconds"]
+    pp_ep = None
+    if selected("pp_ep"):
+        pp_ep = phase_pp_ep(counters, gpu_line)
+        seconds["pp_ep"] = pp_ep["seconds"]
     seconds["total"] = time.perf_counter() - T_START
     emit({"phase": "seconds", **seconds})
 
@@ -5233,7 +5723,7 @@ def main(argv=None):
                         "MobileNetSmall3D": small, "MoViNetA2": movinet},
               "train": train, "trainx": trainx, "stream": stream, "v2": v2,
               "bench": bench_runs, "surface": surface, "tooling": tooling,
-              "dp": dp, "layouts": layouts}
+              "dp": dp, "layouts": layouts, "pp_ep": pp_ep}
     if only:
         skipped = [p for p in PHASES if not selected(p)
                    and not (p in ("fused", "conv", "flash")
@@ -5286,6 +5776,13 @@ def main(argv=None):
                    for job, launches in jobs.items()}
     layout_runs["layouts_tp_pth_serve"] = layouts["modes"]["tp"][
         "serve_pth"]["launches"]
+    # the pp_ep phase likewise, under the prefix ppep_
+    layout_runs.update({f"ppep_{mode}_{rank}_{job}": launches
+                        for mode, m in pp_ep["modes"].items()
+                        for rank, jobs in m["launches"].items()
+                        for job, launches in jobs.items()})
+    layout_runs["ppep_ep_pth_serve"] = pp_ep["modes"]["ep"]["serve_pth"][
+        "launches"]
     runs.update({k: v["fused"] for k, v in layout_runs.items()})
     if tooling["decode"]["ffmpeg_available"]:
         runs["tooling_serve_ffmpeg"] = tooling["decode"]["serve"][
@@ -5343,7 +5840,7 @@ def main(argv=None):
         conv_entry("fwd", conv, conv_runs),
         conv_entry("dx", conv, {k: r for k, r in conv_runs.items()
                                 if k.startswith(("train_", "trainx_",
-                                                 "layouts_"))}),
+                                                 "layouts_", "ppep_"))}),
     ]
     # the host's collate over the whole script: every batch the C++ core's
     from picklebot_tpu_torch.data.native import COLLATES

@@ -9,10 +9,15 @@ its own copy of the key tables of the eight models and the layout rules
 of ``picklebot_tpu/train/key_maps.py`` and ``checkpoint.py`` (conv
 (k..., I, O) -> (O, I, k...), 2-D linear and LSTM (I, O) -> (O, I), a 1x1
 conv kept as a matrix -> (O, I, 1, 1, 1), or (O, I, 1, 1) in the 2-D
-models, BN statistics as state only). ``shard_state_dict`` cuts a full state
-dict into one tensor-parallel rank's (MobileViT's FFN weights by
-``parallel/megatron.py``'s rules) and ``unshard_state_dicts`` joins the
-ranks' back: JAX -> ``state_dict_from_jax`` -> a rank's shard, and back.
+models, BN statistics as state only; an MoE feed-forward's ``router``,
+``w1`` and ``w2`` keep their JAX names with every axis reversed, as the
+JAX export writes them, and its per-forward ``aux_loss`` is no state).
+``shard_state_dict`` cuts a full state dict into one rank's of a sharded
+axis (MobileViT's FFN weights over 'model', its expert banks over
+'expert', by ``parallel/megatron.py``'s rules), ``local_state_dict`` into
+this rank's of every axis of the mesh, and ``unshard_state_dicts`` joins
+the ranks' back: JAX -> ``state_dict_from_jax`` -> a rank's shard, and
+back.
 
 The CLI, the counterpart of ``python -m picklebot_tpu.convert`` on the
 port's formats; the direction follows the output's suffix, and no device
@@ -112,10 +117,22 @@ KEY_RULES = {"MobileNetLarge3D": _MOBILENET3D_RULES,
              "MobileViTV2": _MOBILEVITV2_RULES}
 
 
+# an MoE feed-forward's leaves (ops/moe.py): the JAX export keeps their
+# pytree names, which no rule below may touch (w1/w2 would read as an SE
+# block's)
+_MOE_LEAF = re.compile(r".*\.transformer\.ffs\.\d+\.(router|w1|w2)")
+# per-forward values the JAX modules publish as state; never a tensor of
+# the state dict (the JAX TRANSIENT_STATE_LEAVES)
+TRANSIENT_STATE_LEAVES = ("aux_loss",)
+
+
 def _torch_key(path: str, is_state: bool, model_name: str) -> str:
     if model_name not in KEY_RULES:
         raise NotImplementedError(
             f"no key table for {model_name}: not ported yet (ROADMAP.md)")
+    if model_name == "MobileViT" and not is_state and _MOE_LEAF.fullmatch(
+            path):
+        return path
     for pattern, repl in KEY_RULES[model_name]:
         path = re.sub(pattern, repl, path)
     head, _, leaf = path.rpartition(".")
@@ -200,6 +217,8 @@ def jax_param_path(model: torch.nn.Module, torch_key: str,
             f"no key table for {model_name}: not ported yet (ROADMAP.md)")
     owner_key, _, leaf = torch_key.rpartition(".")
     owner = model.get_submodule(owner_key)
+    if model_name == "MobileViT" and _MOE_LEAF.fullmatch(torch_key):
+        return torch_key
     path = torch_key
     for pattern, repl in INVERSE_RULES[model_name]:
         path = re.sub(pattern, repl, path)
@@ -248,6 +267,8 @@ def state_dict_from_jax(flat_params: Dict[str, np.ndarray],
         out[tk] = torch.from_numpy(_torch_layout(np.asarray(v), tk,
                                                  conv_rank))
     for path, v in flat_state.items():
+        if path.rsplit(".", 1)[-1] in TRANSIENT_STATE_LEAVES:
+            continue
         tk = _torch_key(path, True, model_name)
         out[tk] = torch.from_numpy(np.array(v, np.float32, copy=True))
         if tk.endswith(".running_mean"):
@@ -256,33 +277,46 @@ def state_dict_from_jax(flat_params: Dict[str, np.ndarray],
     return out
 
 
-def shard_state_dict(sd: Dict[str, torch.Tensor], rank: int,
-                     model_parallel: int) -> Dict[str, torch.Tensor]:
-    """A full state dict -> the one of 'model' rank ``rank`` of
-    ``model_parallel``: each FeedForward's ``net.0`` weight (and bias)
+def shard_state_dict(sd: Dict[str, torch.Tensor], rank: int, n: int,
+                     axis: str = "model") -> Dict[str, torch.Tensor]:
+    """A full state dict -> the one of rank ``rank`` of ``n`` on mesh axis
+    ``axis``: over 'model' each FeedForward's ``net.0`` weight (and bias)
     keeps its rank's rows and ``net.3`` weight its columns, as the JAX
-    ``MOBILEVIT_TP_RULES`` shard fc1 and fc2; the rest is shared."""
-    from picklebot_tpu_torch.parallel.megatron import shard_tensor, tp_dim
-    if model_parallel <= 1:
+    ``MOBILEVIT_TP_RULES`` shard fc1 and fc2; over 'expert' each expert
+    bank keeps its rank's experts; the rest is shared."""
+    from picklebot_tpu_torch.parallel.megatron import shard_rule, shard_tensor
+    if n <= 1:
         return dict(sd)
     out = {}
     for k, v in sd.items():
-        dim = tp_dim(k)
-        out[k] = v if dim is None else shard_tensor(v, dim, rank,
-                                                    model_parallel)
+        rule = shard_rule(k)
+        out[k] = (v if rule is None or rule[0] != axis
+                  else shard_tensor(v, rule[1], rank, n))
     return out
 
 
-def unshard_state_dicts(shards) -> Dict[str, torch.Tensor]:
-    """The inverse of ``shard_state_dict``: the 'model' ranks' state dicts,
-    in rank order -> the full one (each shared tensor from rank 0)."""
-    from picklebot_tpu_torch.parallel.megatron import tp_dim
+def local_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A full state dict -> this rank's, cut for every sharded axis of the
+    mesh (``parallel/mesh.init_mesh``)."""
+    from picklebot_tpu_torch.parallel import mesh
+    for axis in ("model", "expert"):
+        sd = shard_state_dict(sd, mesh.axis_index(axis),
+                              mesh.axis_size(axis), axis)
+    return sd
+
+
+def unshard_state_dicts(shards, axis: str = "model"
+                        ) -> Dict[str, torch.Tensor]:
+    """The inverse of ``shard_state_dict``: the ranks' state dicts, in
+    rank order of ``axis`` -> the full one (each shared tensor from rank
+    0)."""
+    from picklebot_tpu_torch.parallel.megatron import shard_rule
     shards = list(shards)
     out = {}
     for k, v in shards[0].items():
-        dim = tp_dim(k)
-        out[k] = (v if dim is None or len(shards) == 1
-                  else torch.cat([sd[k] for sd in shards], dim=dim))
+        rule = shard_rule(k)
+        out[k] = (v if rule is None or rule[0] != axis or len(shards) == 1
+                  else torch.cat([sd[k] for sd in shards], dim=rule[1]))
     return out
 
 

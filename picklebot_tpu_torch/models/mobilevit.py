@@ -49,7 +49,9 @@ from picklebot_tpu_torch.ops.attention import MultiHeadAttention
 from picklebot_tpu_torch.ops.bottleneck import Bottleneck3D
 from picklebot_tpu_torch.ops.conv import Conv3d
 from picklebot_tpu_torch.ops.linear import (Dropout, GlobalAvgPool, Linear,
-                                            current_dropout_rng, dropout_rng)
+                                            current_dropout_rng,
+                                            keyed_seed_stream, keyed_stream)
+from picklebot_tpu_torch.ops.moe import MoEFeedForward
 from picklebot_tpu_torch.ops.norm import BatchNorm
 from picklebot_tpu_torch.parallel import mesh
 from picklebot_tpu_torch.parallel.megatron import (shard_tensor, tp_copy_in,
@@ -87,7 +89,7 @@ class FeedForward(nn.Module):
 
     With ``model_axis`` (an axis of more than one rank) the hidden width is
     sharded over it: the rank holds rows ``net.0`` and columns ``net.3``
-    of its 1/size (``tp_sharded``), the input enters through
+    of its 1/size (``sharded``), the input enters through
     ``tp_copy_in`` and the partial outputs sum through ``tp_reduce_out``
     before the last dropout, as the JAX ``FeedForward`` does."""
 
@@ -102,9 +104,10 @@ class FeedForward(nn.Module):
             Linear(embed_dim, hidden_dim // n, bias=False),
             act.Activation(act.silu), Dropout(dropout),
             Linear(hidden_dim // n, embed_dim, bias=False), Dropout(dropout))
-        self.tp_sharded = {}
+        self.sharded = {}
         if self.model_axis:
-            self.tp_sharded = {"net.0.weight": 0, "net.3.weight": 1}
+            self.sharded = {"net.0.weight": ("model", 0),
+                            "net.3.weight": ("model", 1)}
             r = mesh.axis_index(model_axis)
             # reset_parameters draws the whole weight and keeps the slice
             self.net[0].tp_full = ((hidden_dim, embed_dim), 0, r, n)
@@ -131,29 +134,80 @@ class TransformerStack(nn.Module):
     (``sequence.sp_sync_grads``). Otherwise the stack runs replicated
     (stage 2 of MobileViT-s, N = 147, at an even axis). Under dropout the
     token-sharded layers draw from a stream seeded with the axis rank
-    (the JAX stack folds it into its key). Pipeline parallelism
-    (``pipeline_axis``) is ROADMAP.md's A20.3."""
+    (the JAX stack folds it into its key).
+
+    ``pipeline_axis``: when the axis has more than one rank, divides the
+    depth and ``pipeline_microbatches`` (default: the axis size) divides
+    the batch, the layers run as a GPipe pipeline of axis-size stages
+    (``parallel/pipeline.py``), after the token scatter under SP, with ring
+    attention inside each tick; ``pp_engaged`` records it, so that the
+    train step sums these parameters' gradients over the axis
+    (``pipeline.pp_sync_grads``). Otherwise the plain loop runs (stage 3
+    of MobileViT-s, depth 3, at an even axis). Under dropout each layer
+    application draws from a stream keyed by (layer, microbatch), seeded
+    from the current one.
+
+    ``moe_experts`` > 0: each FeedForward is an ``MoEFeedForward`` under
+    ``ffs.i`` (the JAX export's keys), the attention stays at
+    ``layers.i.0``."""
 
     def __init__(self, embed_dim, depth, heads, dim_head, ffw_dim,
                  dropout=0.0, backend="auto", model_axis=None,
-                 sequence_axis=None):
+                 sequence_axis=None, pipeline_axis=None,
+                 pipeline_microbatches=None, moe_experts=0, moe_top_k=2,
+                 moe_capacity_factor=1.25, expert_axis=None,
+                 moe_dispatch="replicated"):
         super().__init__()
         if sequence_axis is not None and sequence_axis == model_axis:
             raise ValueError(
                 "sequence_axis and model_axis must be distinct mesh axes: "
                 "token-sharded FFN inputs with hidden-sharded weights would "
                 "sum partials of different token blocks together")
+        if pipeline_axis is not None and pipeline_axis in (model_axis,
+                                                           sequence_axis):
+            raise ValueError(
+                "pipeline_axis must be distinct from model_axis and "
+                "sequence_axis: a stage hop over a TP/SP axis would rotate "
+                "activations between ranks holding different weight/token "
+                "shards")
+        if moe_experts and (model_axis or sequence_axis or pipeline_axis):
+            raise ValueError(
+                "moe_experts composes with DP and expert parallelism only: "
+                "TP shards the dense FFN the MoE replaces, SP would change "
+                "routing/capacity semantics per token shard, and PP's "
+                "stages would each publish a part of the aux loss")
         self.sequence_axis = sequence_axis
+        self.pipeline_axis = pipeline_axis
+        self.pipeline_microbatches = pipeline_microbatches
         self.dropout = dropout
         self.sp_engaged = False
-        self.layers = nn.ModuleList([
-            nn.ModuleList([
-                MultiHeadAttention(embed_dim, heads, dim_head, dropout,
-                                   backend=backend,
-                                   sequence_axis=sequence_axis),
-                FeedForward(embed_dim, ffw_dim, dropout,
-                            model_axis=model_axis)])
-            for _ in range(depth)])
+        self.pp_engaged = False
+
+        def attention():
+            return MultiHeadAttention(embed_dim, heads, dim_head, dropout,
+                                      backend=backend,
+                                      sequence_axis=sequence_axis)
+        if moe_experts:
+            self.layers = nn.ModuleList([nn.ModuleList([attention()])
+                                         for _ in range(depth)])
+            self.ffs = nn.ModuleList([
+                MoEFeedForward(embed_dim, ffw_dim, moe_experts, moe_top_k,
+                               moe_capacity_factor, dropout,
+                               expert_axis=expert_axis,
+                               dispatch=moe_dispatch)
+                for _ in range(depth)])
+        else:
+            self.layers = nn.ModuleList([
+                nn.ModuleList([attention(),
+                               FeedForward(embed_dim, ffw_dim, dropout,
+                                           model_axis=model_axis)])
+                for _ in range(depth)])
+
+    def pairs(self):
+        """[(attention, feed-forward)] per layer."""
+        if hasattr(self, "ffs"):
+            return [(a[0], f) for a, f in zip(self.layers, self.ffs)]
+        return [(a, f) for a, f in self.layers]
 
     def sp_active(self, n_tokens: int) -> bool:
         """Whether a sequence of ``n_tokens`` runs token-sharded."""
@@ -162,22 +216,66 @@ class TransformerStack(nn.Module):
         size = mesh.axis_size(self.sequence_axis)
         return size > 1 and n_tokens % size == 0
 
+    def microbatches(self) -> int:
+        return (self.pipeline_microbatches
+                or mesh.axis_size(self.pipeline_axis))
+
+    def pp_active(self, batch: int) -> bool:
+        """Whether a batch of ``batch`` runs as a pipeline."""
+        if self.pipeline_axis is None:
+            return False
+        size = mesh.axis_size(self.pipeline_axis)
+        return (size > 1 and len(self.layers) % size == 0
+                and batch % self.microbatches() == 0)
+
     def forward(self, x, kernels: bool = True):
         sp = self.sp_active(x.shape[-2])
-        self.sp_engaged = sp
-        if not sp:
-            for attn, ff in self.layers:
+        pp = self.pp_active(x.shape[0])
+        self.sp_engaged, self.pp_engaged = sp, pp
+        if not sp and not pp:
+            for attn, ff in self.pairs():
                 x = attn(x, kernels=kernels) + x
                 x = ff(x) + x
             return x
         from picklebot_tpu_torch.parallel.sequence import (sp_gather_tokens,
                                                            sp_scatter_tokens)
-        with self._rank_stream():
-            x = sp_scatter_tokens(x, self.sequence_axis)
-            for attn, ff in self.layers:
-                x = attn(x, kernels=kernels, sp_active=True) + x
-                x = ff(x) + x
-        return sp_gather_tokens(x, self.sequence_axis)
+        with self._rank_stream() if sp else contextlib.nullcontext():
+            if sp:
+                x = sp_scatter_tokens(x, self.sequence_axis)
+            if pp:
+                x = self._pipelined(x, kernels, sp)
+            else:
+                for attn, ff in self.pairs():
+                    x = attn(x, kernels=kernels, sp_active=True) + x
+                    x = ff(x) + x
+        if sp:
+            x = sp_gather_tokens(x, self.sequence_axis)
+        return x
+
+    def _pipelined(self, x, kernels, sp):
+        """The layers as a GPipe pipeline over the pipeline axis."""
+        from picklebot_tpu_torch.parallel.pipeline import gpipe_apply
+        g = current_dropout_rng()
+        seed = None
+        if self.training and self.dropout > 0 and g is not None:
+            seed = int(torch.randint(2 ** 62, (1,), generator=g,
+                                     device=g.device))
+
+        def stream(*keys):
+            if seed is None:
+                return contextlib.nullcontext()
+            return keyed_seed_stream(seed, *keys, device=g.device)
+
+        def layer_fn(pair, layer, mb, h):
+            attn, ff = pair
+            with stream(layer, 2 * mb):
+                h = attn(h, kernels=kernels, sp_active=sp) + h
+            with stream(layer, 2 * mb + 1):
+                h = ff(h) + h
+            return h
+
+        return gpipe_apply(layer_fn, self.pairs(), x, self.pipeline_axis,
+                           self.microbatches())
 
     def _rank_stream(self):
         """Under train-mode dropout, a dropout generator seeded from the
@@ -187,25 +285,19 @@ class TransformerStack(nn.Module):
         g = current_dropout_rng()
         if not (self.training and self.dropout > 0) or g is None:
             return contextlib.nullcontext()
-        seed = int(torch.randint(2 ** 62, (1,), generator=g,
-                                 device=g.device))
-        local = torch.Generator(device=g.device)
-        local.manual_seed((seed * 1_000_003
-                           + mesh.axis_index(self.sequence_axis)) % 2 ** 63)
-        return dropout_rng(local)
+        return keyed_stream(g, mesh.axis_index(self.sequence_axis))
 
 
 class MobileViTBlock(nn.Module):
     def __init__(self, embed_dim, depth, channel, kernel_size=3,
                  patch_size=(2, 2, 2), ffw_dim=None, dropout=0.0,
-                 backend="auto", model_axis=None, sequence_axis=None):
+                 backend="auto", **layout):
         super().__init__()
         self.patch_size = tuple(patch_size)
         self.conv1 = conv_nxn_bn(channel, channel, kernel_size)
         self.conv2 = conv_1x1_bn(channel, embed_dim)
         self.transformer = TransformerStack(embed_dim, depth, 8, 16, ffw_dim,
-                                            dropout, backend, model_axis,
-                                            sequence_axis)
+                                            dropout, backend, **layout)
         self.conv3 = conv_1x1_bn(embed_dim, channel)
         self.conv4 = conv_nxn_bn(2 * channel, channel, kernel_size)
 
@@ -237,7 +329,10 @@ class MobileViT(nn.Module):
                  patch_size: Tuple[int, int, int] = (2, 2, 2),
                  depths: Tuple[int, int, int] = (2, 4, 3),
                  attention_backend: str = "auto", seed: int = 0,
-                 model_axis=None, sequence_axis=None):
+                 model_axis=None, sequence_axis=None, pipeline_axis=None,
+                 pipeline_microbatches=None, moe_experts=0, moe_top_k=2,
+                 moe_capacity_factor=1.25, expert_axis=None,
+                 moe_dispatch="replicated"):
         super().__init__()
         assert len(dims) == 3 and len(depths) == 3
         ch = list(channels)
@@ -251,12 +346,17 @@ class MobileViT(nn.Module):
             B(ch[2], ch[3], ch[2] * expansion, stride=1),
         ])
 
+        layout = dict(model_axis=model_axis, sequence_axis=sequence_axis,
+                      pipeline_axis=pipeline_axis,
+                      pipeline_microbatches=pipeline_microbatches,
+                      moe_experts=moe_experts, moe_top_k=moe_top_k,
+                      moe_capacity_factor=moe_capacity_factor,
+                      expert_axis=expert_axis, moe_dispatch=moe_dispatch)
+
         def vit(i, ffw_mult, channel):
             return MobileViTBlock(dims[i], depths[i], channel, kernel_size,
                                   patch_size, int(dims[i] * ffw_mult),
-                                  backend=attention_backend,
-                                  model_axis=model_axis,
-                                  sequence_axis=sequence_axis)
+                                  backend=attention_backend, **layout)
 
         self.trunk = nn.ModuleList([
             nn.Sequential(B(ch[3], ch[4], ch[3] * expansion, stride=2),

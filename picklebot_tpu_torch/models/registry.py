@@ -31,22 +31,17 @@ PORTED = ("MobileNetLarge3D", "MobileNetSmall3D", "MobileViT", "MoViNetA2",
 
 def _mobilevit(cfg):
     """MobileViT, with its FFNs sharded over the mesh's 'model' axis at
-    ``model_parallel`` > 1 and its transformer tokens over 'seq' at
-    ``sequence_parallel`` > 1 (``parallel/mesh.init_mesh`` lays the
-    process group out first)."""
-    if cfg.pipeline_parallel > 1:
-        raise NotImplementedError(
-            f"MobileViT with pipeline_parallel={cfg.pipeline_parallel} is "
-            "not ported yet (ROADMAP.md, queue A, item A20.3, pipeline "
-            "parallelism)")
-    if cfg.moe_experts > 0:
-        raise NotImplementedError(
-            "MobileViT with moe_experts > 0 is not ported yet (ROADMAP.md, "
-            "queue A, item A20.4, expert parallelism and MoE)")
+    ``model_parallel`` > 1, its transformer tokens over 'seq' at
+    ``sequence_parallel`` > 1, its stacks pipelined over 'pipe' at
+    ``pipeline_parallel`` > 1, routed expert banks at ``moe_experts`` > 0,
+    sharded over 'expert' at ``expert_parallel`` > 1
+    (``parallel/mesh.init_mesh`` lays the process group out first)."""
     if cfg.dims is None or cfg.channels is None:
         raise ValueError("a MobileViT config needs 'dims' and 'channels'")
     for axis, degree in (("model", cfg.model_parallel),
-                         ("seq", cfg.sequence_parallel)):
+                         ("seq", cfg.sequence_parallel),
+                         ("pipe", cfg.pipeline_parallel),
+                         ("expert", cfg.expert_parallel)):
         if degree > 1 and mesh.axis_size(axis) != degree:
             raise ValueError(
                 f"a MobileViT with a '{axis}' axis of {degree} needs the "
@@ -57,7 +52,15 @@ def _mobilevit(cfg):
                      attention_backend=cfg.attention_backend, seed=cfg.seed,
                      model_axis="model" if cfg.model_parallel > 1 else None,
                      sequence_axis=("seq" if cfg.sequence_parallel > 1
-                                    else None))
+                                    else None),
+                     pipeline_axis=("pipe" if cfg.pipeline_parallel > 1
+                                    else None),
+                     pipeline_microbatches=cfg.pipeline_microbatches,
+                     moe_experts=cfg.moe_experts, moe_top_k=cfg.moe_top_k,
+                     moe_capacity_factor=cfg.moe_capacity_factor,
+                     expert_axis=("expert" if cfg.expert_parallel > 1
+                                  else None),
+                     moe_dispatch=cfg.moe_dispatch)
 
 
 def initialize_model(cfg):

@@ -188,6 +188,25 @@ def current_dropout_rng():
     return _GENERATOR.get()
 
 
+def keyed_stream(generator, *keys):
+    """A ``dropout_rng`` block whose generator is seeded from one draw of
+    ``generator`` and ``keys`` (ints): the port's counterpart of a JAX key
+    folded with those keys (a rank, a layer, a microbatch). Every rank
+    that holds the same ``generator`` state draws the same seed."""
+    seed = int(torch.randint(2 ** 62, (1,), generator=generator,
+                             device=generator.device))
+    return keyed_seed_stream(seed, *keys, device=generator.device)
+
+
+def keyed_seed_stream(seed: int, *keys, device):
+    """A ``dropout_rng`` block seeded from ``seed`` and ``keys``."""
+    for k in keys:
+        seed = (seed * 1_000_003 + int(k)) % 2 ** 63
+    local = torch.Generator(device=device)
+    local.manual_seed(seed)
+    return dropout_rng(local)
+
+
 def dropout_mask(shape, keep: float, device) -> torch.Tensor:
     """A bool mask of ``shape``, each entry True with probability
     ``keep``, from the current ``dropout_rng`` generator."""

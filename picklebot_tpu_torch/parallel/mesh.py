@@ -20,14 +20,15 @@ applies.
     binds ``cuda:LOCAL_RANK``; an explicit ``cuda:N`` binds that card
     (two ranks on one card: ``gloo``, since NCCL refuses a card twice).
     The process leaves the group at exit (``shutdown``).
-  * ``init_mesh(model=1, seq=1)``: the ranks as the JAX mesh's
-    ('data', 'pipe', 'seq', 'expert', 'model') devices, data-major with
-    'model' innermost (pipe = expert = 1 here), so global rank r holds
-    what device r of ``make_mesh`` holds; data = world / (seq * model).
+  * ``init_mesh(model=1, seq=1, pipe=1, expert=1)``: the ranks as the
+    JAX mesh's ('data', 'pipe', 'seq', 'expert', 'model') devices,
+    data-major with 'model' innermost, so global rank r holds what device
+    r of ``make_mesh`` holds; data = world / (pipe * seq * expert *
+    model).
     Every rank builds every axis's subgroups, in the same order. An axis
     of size 1 has no group (its collectives are the identity and count
     nothing); an axis that spans the world is the default group, so at
-    model = seq = 1 'data' is exactly the group of plain data
+    every other degree 1 'data' is exactly the group of plain data
     parallelism. ``axis_size``, ``axis_index``: 1 and 0 for an axis not
     in the mesh; before ``init_mesh`` 'data' is the world.
   * ``rank()``, ``world()``, ``is_main()``, ``distributed()``: 0, 1,
@@ -35,10 +36,11 @@ applies.
   * The collectives, each over ``group`` (an axis name, or None for the
     world): ``all_reduce_sum_``, ``all_reduce_mean_`` (a list of tensors
     through one flat f32 bucket: sum, then / the group's size),
-    ``reduce_scatter`` and ``all_gather`` of flat tensors, ``rank_slices``
-    (tensors stacked by rank), ``ppermute`` (to the next rank of the
-    axis, from the previous one), ``broadcast_int``, ``min_int``,
-    ``barrier``. ``gloo`` takes all of them on CUDA tensors too (torch
+    ``reduce_scatter`` and ``all_gather`` of flat tensors, ``all_to_all``
+    (split on one dim, the pieces exchanged, concatenated on another: the
+    JAX ``all_to_all(tiled=True)``), ``rank_slices`` (tensors stacked by
+    rank), ``ppermute`` (to the next rank of the axis, from the previous
+    one), ``broadcast_int``, ``min_int``, ``barrier``. ``gloo`` takes all of them on CUDA tensors too (torch
     2.11 on an H100), which is how two ranks share one card (NCCL
     refuses a card twice), except point-to-point messages: gloo's
     ``send``/``recv`` read host memory, so ``ppermute`` stages a CUDA
@@ -56,7 +58,7 @@ import torch
 import torch.distributed as dist
 
 KINDS = ("all-reduce", "all-gather", "reduce-scatter", "broadcast",
-         "collective-permute")
+         "collective-permute", "all-to-all")
 AXES = ("data", "pipe", "seq", "expert", "model")
 COUNTS = {kind: {"count": 0, "bytes": 0} for kind in KINDS}
 
@@ -167,19 +169,21 @@ def mesh_coords(r: int, shape: Dict[str, int]) -> Dict[str, int]:
     return coords
 
 
-def init_mesh(model: int = 1, seq: int = 1) -> Dict[str, int]:
-    """Lay the process group out as the mesh (data, 1, seq, 1, model) and
-    build every subgroup; returns {axis: size}. Every rank must call it,
-    with the same degrees. Called again with the same degrees it keeps
-    the groups it built."""
+def init_mesh(model: int = 1, seq: int = 1, pipe: int = 1,
+              expert: int = 1) -> Dict[str, int]:
+    """Lay the process group out as the mesh (data, pipe, seq, expert,
+    model) and build every subgroup; returns {axis: size}. Every rank must
+    call it, with the same degrees. Called again with the same degrees it
+    keeps the groups it built."""
     global _MESH_SHAPE
     n = world()
-    inner = model * seq
-    if model < 1 or seq < 1 or n % inner:
+    inner = model * seq * pipe * expert
+    if min(model, seq, pipe, expert) < 1 or n % inner:
         raise ValueError(
-            f"model_parallel={model} x sequence_parallel={seq} must divide "
-            f"the {n} rank(s) of the process group")
-    shape = {"data": n // inner, "pipe": 1, "seq": seq, "expert": 1,
+            f"model_parallel={model} x sequence_parallel={seq} x "
+            f"pipeline_parallel={pipe} x expert_parallel={expert} must "
+            f"divide the {n} rank(s) of the process group")
+    shape = {"data": n // inner, "pipe": pipe, "seq": seq, "expert": expert,
              "model": model}
     key = tuple(shape[a] for a in AXES)
     if key == _MESH_SHAPE and _MESH:
@@ -322,6 +326,32 @@ def ppermute(tensors: Sequence[torch.Tensor], group: str,
         _count("collective-permute", r)
         out.append(r.to(t.device) if staged else r)
     return out
+
+
+def all_to_all(x: torch.Tensor, group: str, split_dim: int,
+               concat_dim: int) -> torch.Tensor:
+    """``x`` cut into the group's n pieces along ``split_dim``, piece j
+    sent to the j-th rank of the axis, and the n pieces this rank
+    receives concatenated along ``concat_dim`` in axis order: the JAX
+    ``all_to_all(split_axis, concat_axis, tiled=True)``. One collective;
+    it counts the bytes of the result. The identity at an axis of one
+    rank."""
+    pg, n, _ = _group(group)
+    if not distributed() or n == 1:
+        return x.clone()
+    if x.shape[split_dim] % n:
+        raise ValueError(f"a dim of {x.shape[split_dim]} does not split "
+                         f"over the {n} ranks of '{group}'")
+    xs = x.movedim(split_dim, 0)
+    xs = xs.reshape((n, xs.shape[0] // n) + tuple(xs.shape[1:]))
+    xs = xs.contiguous()
+    out = torch.empty_like(xs)
+    dist.all_to_all_single(out, xs, group=pg)
+    # out[j]: rank j's piece for this rank, its split dim first
+    pieces = [p.movedim(0, split_dim) for p in out.unbind(0)]
+    result = torch.cat(pieces, dim=concat_dim)
+    _count("all-to-all", result)
+    return result
 
 
 def _int_device() -> torch.device:

@@ -122,10 +122,18 @@ def sp_sync_grads(model, axis: str = "seq") -> None:
     last forward ran token-sharded (``sp_engaged``), summed over
     ``axis`` in one flat f32 all-reduce. A no-op where no region engaged
     or the axis has one rank."""
+    sum_engaged_grads(model, axis, "sp_engaged")
+
+
+def sum_engaged_grads(model, axis: str, flag: str) -> None:
+    """The gradients of the trainable parameters of every module whose
+    attribute ``flag`` is true, summed over ``axis`` in one flat f32
+    all-reduce (a parameter without one counts as zero). A no-op where no
+    module is flagged or the axis has one rank."""
     if mesh.axis_size(axis) == 1:
         return
     params = list({id(p): p for m in model.modules()
-                   if getattr(m, "sp_engaged", False)
+                   if getattr(m, flag, False)
                    for p in m.parameters() if p.requires_grad}.values())
     if not params:
         return

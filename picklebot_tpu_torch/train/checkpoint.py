@@ -28,7 +28,9 @@ collective over 'model' too: it holds full leaves (each FFN shard
 gathered, ``full_state_dict``) and the optimizer state in the JAX TP
 layout (``parallel/megatron.gather_optimizer_state``), so it, and the
 ``.pth`` of such a run, loads into one process as it is; a resume cuts
-them again for its own ranks.
+them again for its own ranks. Expert parallelism does the same over
+'expert' for the MoE banks' ``w1`` / ``w2`` (one layout mechanism,
+``megatron.SHARD_RULES`` and each module's ``sharded``).
 """
 
 from __future__ import annotations
@@ -84,18 +86,19 @@ def snapshot(model, optimizer, ema, epoch: int, loop_state,
 
 
 def _gather_tp(model, tensors: Dict[str, torch.Tensor]):
-    """``tensors`` ({state-dict key: tensor}) with every TP-sharded one
-    gathered over 'model' (a collective); the rest as they are."""
-    from picklebot_tpu_torch.parallel.megatron import gather_tensor, tp_dims
-    dims = tp_dims(model)
-    return {k: v if k not in dims else gather_tensor(v, dims[k])
+    """``tensors`` ({state-dict key: tensor}) with every sharded one (TP
+    over 'model', EP over 'expert') gathered over its axis (a
+    collective); the rest as they are."""
+    from picklebot_tpu_torch.parallel.megatron import gather_tensor, layout
+    lay = layout(model)
+    return {k: v if k not in lay else gather_tensor(v, lay[k][1], lay[k][0])
             for k, v in tensors.items()}
 
 
 def full_state_dict(model) -> Dict[str, torch.Tensor]:
-    """``model.state_dict()`` with full leaves: under tensor parallelism
-    each FFN shard gathered over 'model' (a collective every rank of the
-    group enters); otherwise the state dict itself."""
+    """``model.state_dict()`` with full leaves: under tensor or expert
+    parallelism each shard gathered over its axis (a collective every
+    rank of the group enters); otherwise the state dict itself."""
     return _gather_tp(model, model.state_dict())
 
 

@@ -1,7 +1,6 @@
 """The trainer: ``train(config, max_steps=None, device="cuda")``.
 
-The counterpart of ``picklebot_tpu/train/loop.py`` without its PP and EP
-layouts: the datasets,
+The counterpart of ``picklebot_tpu/train/loop.py``: the datasets,
 gradient accumulation (``effective_batch_size // batch_size`` microbatches
 per optimizer step), epochs over ``max_iters`` with a per-epoch shuffle and
 the cosine schedule stepped per epoch, per-microbatch TensorBoard scalars
@@ -44,18 +43,23 @@ writes TensorBoard scalars, snapshots (full leaves, the optimizer state
 stacked by rank), the ``.pth`` and the statistics; a resume reshards the
 optimizer state for its own degree.
 
-Tensor and sequence parallelism (``model_parallel``,
-``sequence_parallel``; MobileViT only): the process group is laid out as
-the JAX mesh (``parallel/mesh.init_mesh``: data = world / (model x
-seq), 'model' innermost), the model is built with its FFNs sharded over
-'model' and its transformer tokens over 'seq', the replicas are the
-'data' ranks (each loads the data shard of its data rank, and the eval's
-sums are added over 'data'), and snapshots and the ``.pth`` hold full
-leaves, cut again for the ranks on resume. Runs start under torchrun as
+Tensor, sequence, pipeline and expert parallelism (``model_parallel``,
+``sequence_parallel``, ``pipeline_parallel`` with
+``pipeline_microbatches``, ``expert_parallel`` with ``moe_experts``;
+MobileViT only): the process group is laid out as the JAX mesh
+(``parallel/mesh.init_mesh``: data = world / (pipe x seq x expert x
+model), 'model' innermost), the model is built with its FFNs sharded over
+'model', its transformer tokens over 'seq', its stacks pipelined over
+'pipe' and its expert banks over 'expert', the replicas are the 'data'
+ranks (each loads the data shard of its data rank, and the eval's sums
+are added over 'data'), the MoE load-balance losses enter the step with
+``moe_aux_weight``, and snapshots and the ``.pth`` hold full leaves, cut
+again for the ranks on resume. Runs start under torchrun as
 data-parallel ones do.
 
-Every config option this trainer does not port raises NotImplementedError
-naming its ROADMAP.md item; none is silently ignored.
+A checkpoint this trainer cannot read (an Orbax snapshot) raises
+NotImplementedError naming its ROADMAP.md item; no option is silently
+ignored.
 """
 
 from __future__ import annotations
@@ -72,7 +76,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from picklebot_tpu_torch.convert import read_pth, shard_state_dict
+from picklebot_tpu_torch.convert import local_state_dict, read_pth
 from picklebot_tpu_torch.core.policy import DtypePolicy
 from picklebot_tpu_torch.data.dataset import ClipDataset, read_annotations
 from picklebot_tpu_torch.data.augment import Augment
@@ -91,16 +95,9 @@ from picklebot_tpu_torch.utils.autotune import (autotune_config,
 from picklebot_tpu_torch.utils.config import Config
 from picklebot_tpu_torch.utils.devices import resolve_device
 
-# config option -> (is it set?, ROADMAP.md item that ports it)
-UNPORTED = {
-    "pipeline_parallel": (lambda c: c.pipeline_parallel > 1,
-                          "queue A, item A20.3"),
-    "pipeline_microbatches": (lambda c: c.pipeline_microbatches is not None,
-                              "queue A, item A20.3"),
-    "expert_parallel": (lambda c: c.expert_parallel > 1,
-                        "queue A, item A20.4"),
-    "moe_experts": (lambda c: c.moe_experts > 0, "queue A, item A20.4"),
-}
+# config option -> (is it set?, ROADMAP.md item that ports it): empty
+# since every option of the JAX trainer is ported
+UNPORTED = {}
 
 
 def check_ported(config: Config):
@@ -144,14 +141,18 @@ def _check_checkpoint(path: str):
 def check_world(config: Config, world: int) -> int:
     """The parallel degrees of ``config`` against the process group's
     ``world`` size, by the JAX loop's rules: ``model_parallel`` x
-    ``sequence_parallel`` must divide it, the quotient is the data degree,
-    ``data_parallel`` (when set) must equal that and
-    ``dcn_data_parallel`` divide it. Returns the data degree."""
-    inner = config.model_parallel * config.sequence_parallel
+    ``sequence_parallel`` x ``pipeline_parallel`` x ``expert_parallel``
+    must divide it, the quotient is the data degree, ``data_parallel``
+    (when set) must equal that and ``dcn_data_parallel`` divide it.
+    Returns the data degree."""
+    inner = (config.model_parallel * config.sequence_parallel
+             * config.pipeline_parallel * config.expert_parallel)
     if world % inner:
         raise ValueError(
             f"model_parallel={config.model_parallel} x sequence_parallel="
-            f"{config.sequence_parallel} needs a multiple of {inner} ranks; "
+            f"{config.sequence_parallel} x pipeline_parallel="
+            f"{config.pipeline_parallel} x expert_parallel="
+            f"{config.expert_parallel} needs a multiple of {inner} ranks; "
             f"the process group has {world}: launch torchrun "
             f"--nproc_per_node {inner} (or a multiple)")
     n_data = world // inner
@@ -263,7 +264,9 @@ def train(config: Config, max_steps: Optional[int] = None,
     CLI's (cProfile around this call)."""
     check_ported(config)
     check_world(config, mesh.world())
-    mesh.init_mesh(model=config.model_parallel, seq=config.sequence_parallel)
+    mesh.init_mesh(model=config.model_parallel, seq=config.sequence_parallel,
+                   pipe=config.pipeline_parallel,
+                   expert=config.expert_parallel)
     device = resolve_device(device)
     benchmark = None
     if config.autotune:
@@ -277,7 +280,8 @@ def _train(config: Config, max_steps: Optional[int], device) -> dict:
     policy = DtypePolicy.bf16() if config.use_autocast else DtypePolicy.f32()
     n_ranks, rank, is_main = mesh.world(), mesh.rank(), mesh.is_main()
     n_data = mesh.axis_size("data")
-    mp, m_rank = config.model_parallel, mesh.axis_index("model")
+    # TP or EP: the ranks hold shards, so snapshots are collectives
+    sharded = config.model_parallel > 1 or config.expert_parallel > 1
     model = initialize_model(config)
     if config.freeze_params:
         # before the optimizer is built: it keeps the trainable ones only
@@ -310,10 +314,10 @@ def _train(config: Config, max_steps: Optional[int], device) -> dict:
         else:
             payload = ckpt.load_checkpoint(config.checkpoint)
             warm = config.warm_start
-        # full leaves on disk: this rank's TP shards
-        payload["model"] = shard_state_dict(payload["model"], m_rank, mp)
+        # full leaves on disk: this rank's TP / EP shards
+        payload["model"] = local_state_dict(payload["model"])
         if payload.get("ema") is not None:
-            payload["ema"] = shard_state_dict(payload["ema"], m_rank, mp)
+            payload["ema"] = local_state_dict(payload["ema"])
         if warm and config.warm_start_partial:
             _warm_graft(model, payload["model"], config.model_name)
         else:
@@ -379,7 +383,7 @@ def _train(config: Config, max_steps: Optional[int], device) -> dict:
         augment=Augment(flip=config.augment_flip, crop=config.augment_crop,
                         brightness=config.augment_brightness),
         ema=ema, ema_decay=config.ema_decay, input_size=config.input_size,
-        zero=zero)
+        zero=zero, moe_aux_weight=config.moe_aux_weight)
     eval_step = make_eval_step(model, config.criterion, policy, mean, std,
                                device, input_size=config.input_size)
 
@@ -426,9 +430,10 @@ def _train(config: Config, max_steps: Optional[int], device) -> dict:
     snapshots = ckpt.SnapshotWriter()
 
     def save(directory, epoch, minor=None, block=None):
-        # under ZeRO or TP the snapshot is a collective; rank 0 writes it
+        # under ZeRO, TP or EP the snapshot is a collective; rank 0
+        # writes it
         block = not config.async_checkpoint if block is None else block
-        if is_main or zero is not None or mp > 1:
+        if is_main or zero is not None or sharded:
             payload = ckpt.snapshot(
                 model, optimizer, ema, state_epoch,
                 [global_step, supers_in_epoch],

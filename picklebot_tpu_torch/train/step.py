@@ -41,14 +41,19 @@ all-gather; at stage 3 the step gathers the parameters first and
 releases them after, and the EMA lives in the rank's chunks.
 
 Under a mesh (``mesh.init_mesh``: tensor parallelism over 'model',
-sequence parallelism over 'seq', the JAX step under shard_map) every
-replica reduction above runs over 'data' alone: gradients, BatchNorm
-statistics, losses and correct counts, and the seeds fold in the data
-rank only, so the 'model' and 'seq' ranks of one replica draw the same
-masks. The gradients of the token-sharded transformer stacks are first
-summed over 'seq' (``parallel/sequence.sp_sync_grads``). The global-norm
-clip counts a TP-sharded parameter's squared norm summed over 'model' and
-a replicated one once, so every rank scales by the same factor.
+sequence parallelism over 'seq', pipeline parallelism over 'pipe', expert
+parallelism over 'expert', the JAX step under shard_map) every replica
+reduction above runs over 'data' alone: gradients, BatchNorm statistics,
+losses and correct counts, and the seeds fold in the data rank only, so
+the other ranks of one replica draw the same masks. The gradients of the
+token-sharded transformer stacks are first summed over 'seq'
+(``parallel/sequence.sp_sync_grads``) and those of the pipelined ones over
+'pipe' (``parallel/pipeline.pp_sync_grads``). The global-norm clip counts
+a sharded parameter's squared norm summed over its axis ('model' or
+'expert') and a replicated one once, so every rank scales by the same
+factor. The MoE feed-forwards' load-balance losses (``ops/moe.py``), times
+``moe_aux_weight``, join each microbatch's backward loss; the logged
+``loss`` stays the task loss (the JAX ``collect_aux_losses``).
 """
 
 from __future__ import annotations
@@ -65,7 +70,8 @@ from picklebot_tpu_torch.ops.linear import dropout_rng
 from picklebot_tpu_torch.ops.resize import resize_frames
 from picklebot_tpu_torch.parallel import mesh
 from picklebot_tpu_torch.parallel import zero as zero_mod
-from picklebot_tpu_torch.parallel.megatron import tp_dims
+from picklebot_tpu_torch.parallel.megatron import layout
+from picklebot_tpu_torch.parallel.pipeline import pp_sync_grads
 from picklebot_tpu_torch.parallel.sequence import sp_sync_grads
 from picklebot_tpu_torch.train.losses import (LOSSES, LOSSES_PER_SAMPLE,
                                               prepare_labels, smoothed_bce,
@@ -159,7 +165,8 @@ def make_train_step(model, optimizer, criterion: str, schedule,
                     max_grad_norm=None, label_smoothing: float = 0.0,
                     seed: int = 0, device="cuda", remat: int = 0,
                     augment=None, ema=None, ema_decay: float = 0.0,
-                    input_size=None, zero=None, data_parallel=None):
+                    input_size=None, zero=None, data_parallel=None,
+                    moe_aux_weight: float = 0.01):
     """step(epoch, features, labels, position=0) -> metrics, with features
     (A, B, T, H, W, C) uint8 clips or (A, B, H, W, C) images and labels
     (A, B) (numpy or tensors) and
@@ -184,7 +191,9 @@ def make_train_step(model, optimizer, criterion: str, schedule,
     with ``optimizer`` built on its slices (``zero.zero_optimizer``); at
     stage 3 ``ema`` holds the rank's chunks, {name: (chunk,) f32}.
     ``data_parallel=False`` runs this process alone even under a group
-    (the bench's measurement, which the autotuner makes on rank 0 only)."""
+    (the bench's measurement, which the autotuner makes on rank 0 only).
+    ``moe_aux_weight`` scales the MoE load-balance losses added to each
+    microbatch's backward loss."""
     policy = policy or DtypePolicy.bf16()
     device = torch.device(device)
     if remat:
@@ -214,10 +223,12 @@ def make_train_step(model, optimizer, criterion: str, schedule,
         loss_fn = (smoothed_cross_entropy(label_smoothing) if criterion == "CE"
                    else smoothed_bce(label_smoothing))
     params = [p for p in model.parameters() if p.requires_grad]
-    sharded = tp_dims(model)
-    tp_params = [i for i, (n, p) in enumerate(
+    sharded = layout(model)
+    # index of each sharded trainable parameter -> its axis
+    shard_axes = {i: sharded[n][0] for i, (n, p) in enumerate(
         (n, p) for n, p in model.named_parameters() if p.requires_grad)
-        if n in sharded]
+        if n in sharded}
+    aux_modules = [m for m in model.modules() if hasattr(m, "aux_loss")]
     generator = torch.Generator(device=device)
 
     def step(epoch, features, labels, position: int = 0):
@@ -245,7 +256,15 @@ def make_train_step(model, optimizer, criterion: str, schedule,
                 with dropout_rng(generator):
                     logits = model(x)
                 loss = loss_fn(logits, lbl)
-                loss.backward()
+                if aux_modules:
+                    # read before the backward: a remat recompute
+                    # overwrites aux_loss with its own value
+                    aux = sum(m.aux_loss.float() for m in aux_modules)
+                    (loss + moe_aux_weight * aux).backward()
+                    for m in aux_modules:
+                        m.aux_loss = None
+                else:
+                    loss.backward()
                 losses.append(loss.detach())
                 corrects.append(acc_fn(logits.detach(), lbl))
             metrics = {"loss": torch.stack(losses),
@@ -256,6 +275,7 @@ def make_train_step(model, optimizer, criterion: str, schedule,
             if dp:
                 _reduce_replicas(metrics, statistics, n_ranks)
                 sp_sync_grads(model)
+                pp_sync_grads(model)
             if zero is not None:
                 update = (zero_mod.zero3_update if stage3
                           else zero_mod.zero_update)
@@ -269,7 +289,7 @@ def make_train_step(model, optimizer, criterion: str, schedule,
                             p.grad = torch.zeros_like(p)
                     mesh.all_reduce_mean_([p.grad for p in params], "data")
                 if max_grad_norm is not None:
-                    norm = torch.sqrt(sum(_squares(params, tp_params)))
+                    norm = torch.sqrt(sum(_squares(params, shard_axes)))
                     scale = torch.clamp(max_grad_norm / (norm + 1e-6),
                                         max=1.0)
                     for p in params:
@@ -287,18 +307,20 @@ def make_train_step(model, optimizer, criterion: str, schedule,
     return step
 
 
-def _squares(params, tp_params):
+def _squares(params, shard_axes):
     """Each gradient's f32 squared norm, in parameter order; those of the
-    TP-sharded parameters (indices ``tp_params``) summed over 'model' in
-    one all-reduce."""
+    sharded parameters (``shard_axes``: index -> axis) summed over their
+    axis, one all-reduce per axis."""
     sq = [None if p.grad is None else p.grad.float().pow(2).sum()
           for p in params]
-    tp = [i for i in tp_params if sq[i] is not None]
-    if tp:
-        total = mesh.all_reduce_sum_(torch.stack([sq[i] for i in tp]),
-                                     "model")
-        for j, i in enumerate(tp):
-            sq[i] = total[j]
+    for axis in sorted(set(shard_axes.values())):
+        idx = [i for i, a in shard_axes.items()
+               if a == axis and sq[i] is not None]
+        if idx:
+            total = mesh.all_reduce_sum_(torch.stack([sq[i] for i in idx]),
+                                         axis)
+            for j, i in enumerate(idx):
+                sq[i] = total[j]
     return [s for s in sq if s is not None]
 
 

@@ -129,10 +129,12 @@ def test_cli_on_cuda_without_a_card_raises(tmp_path):
 
 # options refused once and ported since: the resize of A16, the
 # autotuner and cProfile of A17, data parallelism (A18), ZeRO (A19),
-# tensor and sequence parallelism (A20.1, A20.2)
+# tensor and sequence parallelism (A20.1, A20.2), pipeline parallelism
+# (A20.3), the experts and expert parallelism (A20.4)
 PORTED_SINCE = ("input_size", "autotune", "profile", "data_parallel",
                 "dcn_data_parallel", "zero_sharding", "model_parallel",
-                "sequence_parallel")
+                "sequence_parallel", "pipeline_parallel", "expert_parallel",
+                "moe_experts")
 
 
 @pytest.mark.parametrize("option,value", [
@@ -147,7 +149,9 @@ def test_unported_options_are_refused_naming_roadmap(tmp_path, option,
     has been ported since (``input_size``, the resize of A16; ``autotune``
     and ``profile``, A17; ``data_parallel`` and ``dcn_data_parallel``,
     A18; ``zero_sharding``, A19; ``model_parallel`` and
-    ``sequence_parallel``, A20.1-2) passes the check instead."""
+    ``sequence_parallel``, A20.1-2; ``pipeline_parallel``, A20.3;
+    ``expert_parallel`` and ``moe_experts``, A20.4) passes the check
+    instead."""
     config = dataclasses.replace(load_config(_config(tmp_path, "MobileViT")),
                                  **{option: value})
     if option in PORTED_SINCE:

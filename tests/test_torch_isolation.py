@@ -72,14 +72,15 @@ def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
     assert '"ok"' not in out.stdout
 
 
-def test_unported_model_points_to_roadmap():
-    """Kept under its first name: every registry model is ported now, so
-    it holds another refusal, a trainer option not ported yet
-    (pipeline parallelism, since model_parallel is), to its ROADMAP.md
+def test_unported_model_points_to_roadmap(tmp_path):
+    """Kept under its first name: every registry model and every trainer
+    option is ported now, so it holds the refusal that remains, an Orbax
+    snapshot of the JAX package as a checkpoint, to its ROADMAP.md
     item."""
     from picklebot_tpu_torch.train.loop import train
     from picklebot_tpu_torch.utils.config import Config
-    with pytest.raises(NotImplementedError,
-                       match="pipeline_parallel.*ROADMAP.*A20"):
-        train(Config(model_name="MobileNetLarge3D", pipeline_parallel=2),
+    orbax = tmp_path / "MobileNetLarge3D" / "step_3"
+    orbax.mkdir(parents=True)
+    with pytest.raises(NotImplementedError, match="Orbax.*ROADMAP.*A8"):
+        train(Config(model_name="MobileNetLarge3D", checkpoint=str(orbax)),
               device="cpu")

@@ -154,4 +154,4 @@ def test_train_mode_is_refused():
     out.pow(2).sum().backward()
     assert all(p.grad is not None for p in m.parameters())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_ported(Config(pipeline_parallel=2))
+        check_ported(Config(checkpoint="an/orbax/step_3"))

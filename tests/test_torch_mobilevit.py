@@ -110,8 +110,9 @@ def test_eval_logits_match_jax_bf16(rng):
 
 def test_train_mode_is_refused():
     """Train mode runs: the forward advances every BatchNorm's statistics
-    and keeps a graph that reaches every parameter. What the model still
-    refuses, pipeline parallelism, names ROADMAP.md."""
+    and keeps a graph that reaches every parameter. Pipeline parallelism
+    is no longer refused; without the process group laid out as its mesh
+    the registry says so."""
     m = MobileViT(num_classes=13, attention_backend="packed", **XXS).train()
     bns = [b for b in m.modules() if isinstance(b, BatchNorm)]
     out = m(torch.rand(1, 4, 32, 32, 3))
@@ -119,6 +120,6 @@ def test_train_mode_is_refused():
     assert all(int(b.num_batches_tracked) == 1 for b in bns)
     out.float().pow(2).sum().backward()
     assert all(p.grad is not None for p in m.parameters())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="init_mesh"):
         initialize_model(Config(model_name="MobileViT", pipeline_parallel=2,
                                 **XXS).validate())

@@ -75,8 +75,8 @@ from picklebot_tpu_torch.models.mobilevit import MobileViT, TransformerStack
 from picklebot_tpu_torch.ops.linear import ChannelDropout, Dropout, Linear
 from picklebot_tpu_torch.ops.ring_attention import ring_attention
 from picklebot_tpu_torch.parallel import mesh
-from picklebot_tpu_torch.parallel.megatron import (gather_tensor, tp_copy_in,
-                                                   tp_dims, tp_reduce_out)
+from picklebot_tpu_torch.parallel.megatron import (gather_tensor, layout,
+                                                   tp_copy_in, tp_reduce_out)
 from picklebot_tpu_torch.train.checkpoint import full_state_dict
 from picklebot_tpu_torch.train.losses import cross_entropy
 from picklebot_tpu_torch.train.optim import OPTIMIZERS, cosine_annealing_lr
@@ -153,9 +153,9 @@ def run_step(job):
                               for k, v in full_state_dict(m).items()})
         if s == 0 and job.get("record_grads"):
             # the step's reduced gradients, the shards gathered
-            dims = tp_dims(m)
-            out["grads"] = {n: (gather_tensor(p.grad, dims[n]) if n in dims
-                                else p.grad).clone()
+            lay = layout(m)
+            out["grads"] = {n: (gather_tensor(p.grad, lay[n][1], lay[n][0])
+                                if n in lay else p.grad).clone()
                             for n, p in m.named_parameters()}
     out["engaged"] = engaged(m)
     out["local_numel"] = sum(p.numel() for p in m.parameters())
@@ -817,8 +817,7 @@ def test_tp_model_seeded_weights_are_the_one_process_models():
 def test_registry_and_loop_take_model_parallel():
     """The port no longer refuses model_parallel: not in ``UNPORTED``, and
     the registry builds it once the mesh has the axis (without one it
-    says so); pipeline_parallel and moe_experts still name A20.3 and
-    A20.4."""
+    says so), as it does pipeline_parallel since A20.3."""
     from picklebot_tpu_torch.models.registry import initialize_model
     from picklebot_tpu_torch.train.loop import UNPORTED, check_world
     from picklebot_tpu_torch.utils.config import Config
@@ -832,7 +831,7 @@ def test_registry_and_loop_take_model_parallel():
     with pytest.raises(ValueError, match="needs a multiple of 2"):
         check_world(cfg, 3)
     assert check_world(cfg, 4) == 2
-    with pytest.raises(NotImplementedError, match="A20.3"):
+    with pytest.raises(ValueError, match="init_mesh"):
         initialize_model(Config(model_name="MobileViT", pipeline_parallel=2,
                                 dims=VIT_ARCH["dims"],
                                 channels=VIT_ARCH["channels"]).validate())
