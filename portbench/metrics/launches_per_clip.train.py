@@ -1,0 +1,7 @@
+"""``launches_per_clip.train``: see ``harness/readers.py`` ``launches_per_clip``."""
+
+from portbench.harness import readers
+
+
+def read(win):
+    return readers.launches_per_clip(win, "train")
