@@ -25,7 +25,11 @@ its forward is the kernel with the f32 logsumexp, its backward computes
 D = rowsum(dO * O) in f32 in torch, then launches the dQ and the dK/dV
 kernels (on the CPU: the plain forward with lse and
 ``flash_backward_reference``). Otherwise the forward runs alone, without
-the lse. In bf16 every kernel runs on the tensor cores (``_forward_plan``,
+the lse. In a torch profiler's trace every forward and every backward,
+the D pass included, is a span (``FORWARD_SPAN``, ``BACKWARD_SPAN``;
+``utils/profiling.span``).
+
+In bf16 every kernel runs on the tensor cores (``_forward_plan``,
 ``_backward_plan``) and copies rows in 16-byte pieces, so a view whose
 rows do not start on 16 bytes is refused (``_rows_aligned16``), never
 copied; the views the model hands on (the qkv split's chunks, split
@@ -51,8 +55,11 @@ import torch
 
 from picklebot_tpu_torch.ops import library
 from picklebot_tpu_torch.ops.linear import dropout_mask
+from picklebot_tpu_torch.utils.profiling import span
 
 LAUNCHES = {"packed": 0, "heads": 0, "dq": 0, "dkv": 0}
+FORWARD_SPAN = "picklebot.flash.forward"
+BACKWARD_SPAN = "picklebot.flash.backward"
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64)
@@ -403,26 +410,29 @@ def _qkvpacked_launch(qkv, scale, with_lse):
 def _packed_forward(q, k, v, heads, scale, with_lse):
     """(out, lse or None): the kernel on a CUDA tensor, the plain version
     on a CPU one."""
-    if q.device.type == "cpu":
-        res = flash_attention_packed_reference(q, k, v, heads, scale,
-                                               with_lse)
-        return res if with_lse else (res, None)
-    return _packed_launch(q, k, v, heads, scale, with_lse)
+    with span(FORWARD_SPAN):
+        if q.device.type == "cpu":
+            res = flash_attention_packed_reference(q, k, v, heads, scale,
+                                                   with_lse)
+            return res if with_lse else (res, None)
+        return _packed_launch(q, k, v, heads, scale, with_lse)
 
 
 def _heads_forward(q, k, v, scale, with_lse):
-    if q.device.type == "cpu":
-        res = sdpa(q, k, v, scale, with_lse)
-        return res if with_lse else (res, None)
-    return _heads_launch(q, k, v, scale, with_lse)
+    with span(FORWARD_SPAN):
+        if q.device.type == "cpu":
+            res = sdpa(q, k, v, scale, with_lse)
+            return res if with_lse else (res, None)
+        return _heads_launch(q, k, v, scale, with_lse)
 
 
 def _qkvpacked_forward(qkv, scale, with_lse):
-    if qkv.device.type == "cpu":
-        res = sdpa(*_qkv_split(qkv), scale, with_lse)
-        out, lse = res if with_lse else (res, None)
-        return out.transpose(-2, -3), lse
-    return _qkvpacked_launch(qkv, scale, with_lse)
+    with span(FORWARD_SPAN):
+        if qkv.device.type == "cpu":
+            res = sdpa(*_qkv_split(qkv), scale, with_lse)
+            out, lse = res if with_lse else (res, None)
+            return out.transpose(-2, -3), lse
+        return _qkvpacked_launch(qkv, scale, with_lse)
 
 
 # The inference forwards (no lse) as custom ops (ops/library.py): the
@@ -532,14 +542,16 @@ class FlashPackedFn(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
         heads, scale = ctx.heads, ctx.scale
-        if q.device.type == "cpu":
-            grads = flash_backward_reference(
-                *(split_heads(t, heads) for t in (q, k, v, out)), lse,
-                split_heads(g, heads), scale)
-            return (*(merge_heads(t) for t in grads), None, None)
-        grads, views = _packed_backward_views(q, k, v, out, lse, g, heads)
-        _launch_backward(*views, scale)
-        return (*grads, None, None)
+        with span(BACKWARD_SPAN):
+            if q.device.type == "cpu":
+                grads = flash_backward_reference(
+                    *(split_heads(t, heads) for t in (q, k, v, out)), lse,
+                    split_heads(g, heads), scale)
+                return (*(merge_heads(t) for t in grads), None, None)
+            grads, views = _packed_backward_views(q, k, v, out, lse, g,
+                                                  heads)
+            _launch_backward(*views, scale)
+            return (*grads, None, None)
 
 
 class FlashFn(torch.autograd.Function):
@@ -555,12 +567,13 @@ class FlashFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
-        if q.device.type == "cpu":
-            return (*flash_backward_reference(q, k, v, out, lse, g,
-                                              ctx.scale), None)
-        grads, views = _heads_backward_views(q, k, v, out, lse, g)
-        _launch_backward(*views, ctx.scale)
-        return (*grads, None)
+        with span(BACKWARD_SPAN):
+            if q.device.type == "cpu":
+                return (*flash_backward_reference(q, k, v, out, lse, g,
+                                                  ctx.scale), None)
+            grads, views = _heads_backward_views(q, k, v, out, lse, g)
+            _launch_backward(*views, ctx.scale)
+            return (*grads, None)
 
 
 class FlashQKVPackedFn(torch.autograd.Function):
@@ -578,15 +591,16 @@ class FlashQKVPackedFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         qkv, out, lse = ctx.saved_tensors
-        if qkv.device.type == "cpu":
-            grads = flash_backward_reference(
-                *_qkv_split(qkv), out.transpose(-2, -3), lse,
-                g.transpose(-2, -3), ctx.scale)
-            return torch.stack([t.transpose(-2, -3) for t in grads],
-                               dim=-3), None
-        dqkv, views = _qkvpacked_backward_views(qkv, out, lse, g)
-        _launch_backward(*views, ctx.scale)
-        return dqkv, None
+        with span(BACKWARD_SPAN):
+            if qkv.device.type == "cpu":
+                grads = flash_backward_reference(
+                    *_qkv_split(qkv), out.transpose(-2, -3), lse,
+                    g.transpose(-2, -3), ctx.scale)
+                return torch.stack([t.transpose(-2, -3) for t in grads],
+                                   dim=-3), None
+            dqkv, views = _qkvpacked_backward_views(qkv, out, lse, g)
+            _launch_backward(*views, ctx.scale)
+            return dqkv, None
 
 
 def flash_attention_packed(q, k, v, heads: int, scale=None,

@@ -31,7 +31,8 @@ dw outside any Pallas kernel too (XLA's conv VJP), so a library call is its
 counterpart: dw is not a hand-written kernel here.
 
 ``LAUNCHES`` counts kernel launches: ``fwd`` for the forward, ``dx`` for
-the input gradient. The forward is also the custom op
+the input gradient; in a torch profiler's trace each is a span of its
+own (``SPANS``; ``utils/profiling.span``). The forward is also the custom op
 ``picklebot::folded_conv_fwd`` (``ops/library.py``), through which a
 traced call goes, so that an exported program keeps it.
 """
@@ -46,8 +47,11 @@ import torch
 import torch.nn.functional as F
 
 from picklebot_tpu_torch.ops import library
+from picklebot_tpu_torch.utils.profiling import span
 
 LAUNCHES = {"fwd": 0, "dx": 0}
+SPANS = {"fwd": "picklebot.folded_conv.forward",
+         "dx": "picklebot.folded_conv.dx"}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FNS = {}
@@ -159,11 +163,12 @@ def _check(x5, w, pads):
 def _conv(x5, w, pads, count: str):
     """The conv itself, no graph: the kernel on a CUDA tensor (counted
     once under ``count``, the split's sum pass included), the plain
-    version on a CPU tensor."""
-    pads = _check(x5, w, pads)
-    if x5.device.type == "cpu":
-        return folded_conv_reference(x5, w, pads)
-    return _launch(x5, w, pads, count)
+    version on a CPU tensor; inside the profiler span of ``count``."""
+    with span(SPANS[count]):
+        pads = _check(x5, w, pads)
+        if x5.device.type == "cpu":
+            return folded_conv_reference(x5, w, pads)
+        return _launch(x5, w, pads, count)
 
 
 def _launch(x5, w, pads, count: str):

@@ -32,7 +32,11 @@ Under autograd (grad enabled and an input that requires grad)
 backward that recomputes the plain chain and differentiates it, as the JAX
 package's ``custom_vjp`` does (``_fb_bwd``, an XLA recompute, not a
 kernel). The backward launches no kernel. ``fused_pool`` and
-``fused_main`` alone have no backward and raise under autograd.
+``fused_main`` alone have no backward and raise under autograd. In a
+torch profiler's trace the forward (both passes and the SE MLP) and the
+backward (the recompute and its gradient) are the spans
+``picklebot.fused_bottleneck.forward`` and ``.backward``
+(``utils/profiling.span``).
 
 Weight layouts are the JAX package's, as matrices: w1 (C, E), wd (k, k, E),
 w2 (E, Co), se_w1 (E, E/4), se_b1 (E/4,), se_w2 (E/4, E), se_b2 (E,).
@@ -55,6 +59,7 @@ import torch
 from picklebot_tpu_torch.ops import library
 from picklebot_tpu_torch.ops.activations import hardsigmoid, relu
 from picklebot_tpu_torch.ops.conv import depthwise_conv, pointwise_conv
+from picklebot_tpu_torch.utils.profiling import span
 
 LAUNCHES = {"pool": 0, "main": 0}
 
@@ -508,19 +513,21 @@ def fused_main(x, w1, wd, w2, scale, kernel_size: int, stride: int):
 
 def _fused_forward(x, w1, wd, w2, se_w1, se_b1, se_w2, se_b2,
                    kernel_size, stride, use_se):
-    if x.device.type == "cpu" and not library.use_ops():
-        return fused_bottleneck_reference(x, w1, wd, w2, se_w1, se_b1, se_w2,
-                                          se_b2, kernel_size, stride, use_se)
-    b, t, h, w, _ = x.shape
-    if use_se:
-        to, ho, wo = out_shape(t, h, w, kernel_size, stride)
-        pooled = fused_pool(x, w1, wd, kernel_size, stride)
-        scale = se_scale(pooled / float(to * ho * wo), se_w1, se_b1, se_w2,
-                         se_b2, x.dtype)
-    else:
-        scale = torch.ones((b, w1.shape[-1]), device=x.device,
-                           dtype=torch.float32)
-    return fused_main(x, w1, wd, w2, scale, kernel_size, stride)
+    with span("picklebot.fused_bottleneck.forward"):
+        if x.device.type == "cpu" and not library.use_ops():
+            return fused_bottleneck_reference(x, w1, wd, w2, se_w1, se_b1,
+                                              se_w2, se_b2, kernel_size,
+                                              stride, use_se)
+        b, t, h, w, _ = x.shape
+        if use_se:
+            to, ho, wo = out_shape(t, h, w, kernel_size, stride)
+            pooled = fused_pool(x, w1, wd, kernel_size, stride)
+            scale = se_scale(pooled / float(to * ho * wo), se_w1, se_b1,
+                             se_w2, se_b2, x.dtype)
+        else:
+            scale = torch.ones((b, w1.shape[-1]), device=x.device,
+                               dtype=torch.float32)
+        return fused_main(x, w1, wd, w2, scale, kernel_size, stride)
 
 
 class FusedBottleneckFn(torch.autograd.Function):
@@ -540,16 +547,17 @@ class FusedBottleneckFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        inputs = [None if t is None else
-                  t.detach().requires_grad_(need)
-                  for t, need in zip(ctx.saved_tensors,
-                                     ctx.needs_input_grad)]
-        with torch.enable_grad():
-            out = fused_bottleneck_reference(*inputs, *ctx.static)
-        wrt = [t for t in inputs if t is not None and t.requires_grad]
-        grads = iter(torch.autograd.grad(out, wrt, g, allow_unused=True))
-        return (*(next(grads) if t is not None and t.requires_grad
-                  else None for t in inputs), None, None, None)
+        with span("picklebot.fused_bottleneck.backward"):
+            inputs = [None if t is None else
+                      t.detach().requires_grad_(need)
+                      for t, need in zip(ctx.saved_tensors,
+                                         ctx.needs_input_grad)]
+            with torch.enable_grad():
+                out = fused_bottleneck_reference(*inputs, *ctx.static)
+            wrt = [t for t in inputs if t is not None and t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wrt, g, allow_unused=True))
+            return (*(next(grads) if t is not None and t.requires_grad
+                      else None for t in inputs), None, None, None)
 
 
 def fused_bottleneck(x, w1, wd, w2, se_w1, se_b1, se_w2, se_b2,

@@ -54,6 +54,14 @@ a sharded parameter's squared norm summed over its axis ('model' or
 factor. The MoE feed-forwards' load-balance losses (``ops/moe.py``), times
 ``moe_aux_weight``, join each microbatch's backward loss; the logged
 ``loss`` stays the task loss (the JAX ``collect_aux_losses``).
+
+In a torch profiler's trace (``utils/profiling.span``) a train step's
+phases are spans that tile it: ``picklebot.step.input`` (the microbatch's
+H2D copy, ``preprocess``, the augmentation, the labels),
+``picklebot.step.forward`` (the forward, the loss and the MoE aux sum)
+and ``picklebot.step.backward`` per microbatch, then
+``picklebot.step.update`` once (the replica reductions, the clip, the
+optimizer or ZeRO update, the EMA, the stage-3 release).
 """
 
 from __future__ import annotations
@@ -76,6 +84,7 @@ from picklebot_tpu_torch.parallel.sequence import sp_sync_grads
 from picklebot_tpu_torch.train.losses import (LOSSES, LOSSES_PER_SAMPLE,
                                               prepare_labels, smoothed_bce,
                                               smoothed_cross_entropy)
+from picklebot_tpu_torch.utils.profiling import span
 
 
 def preprocess(features: torch.Tensor, compute_dtype, mean=None, std=None,
@@ -242,31 +251,36 @@ def make_train_step(model, optimizer, criterion: str, schedule,
         losses, corrects = [], []
         with policy.precision():
             for i in range(feats.shape[0]):
-                if aug is None:
-                    x = preprocess(feats[i].to(device), policy.compute_dtype,
-                                   mean, std, input_size)
-                else:
-                    x = preprocess(feats[i].to(device), policy.compute_dtype,
-                                   input_size=input_size)
-                    x = apply_augment(x, draw_augment(
-                        aug, x.shape[0], key_seed, position + i), aug.crop)
-                    x = standardize(x, mean, std)
-                lbl = prepare_labels(criterion, lbls[i].to(device))
-                generator.manual_seed(_micro_seed(key_seed, position + i))
-                with dropout_rng(generator):
-                    logits = model(x)
-                loss = loss_fn(logits, lbl)
-                if aux_modules:
-                    # read before the backward: a remat recompute
-                    # overwrites aux_loss with its own value
-                    aux = sum(m.aux_loss.float() for m in aux_modules)
-                    (loss + moe_aux_weight * aux).backward()
-                    for m in aux_modules:
-                        m.aux_loss = None
-                else:
-                    loss.backward()
+                with span("picklebot.step.input"):
+                    x = feats[i].to(device)
+                    if aug is None:
+                        x = preprocess(x, policy.compute_dtype, mean, std,
+                                       input_size)
+                    else:
+                        x = preprocess(x, policy.compute_dtype,
+                                       input_size=input_size)
+                        x = apply_augment(x, draw_augment(
+                            aug, x.shape[0], key_seed, position + i),
+                            aug.crop)
+                        x = standardize(x, mean, std)
+                    lbl = prepare_labels(criterion, lbls[i].to(device))
+                with span("picklebot.step.forward"):
+                    generator.manual_seed(_micro_seed(key_seed, position + i))
+                    with dropout_rng(generator):
+                        logits = model(x)
+                    loss = total = loss_fn(logits, lbl)
+                    if aux_modules:
+                        # read before the backward: a remat recompute
+                        # overwrites aux_loss with its own value
+                        aux = sum(m.aux_loss.float() for m in aux_modules)
+                        total = loss + moe_aux_weight * aux
+                    corrects.append(acc_fn(logits.detach(), lbl))
+                with span("picklebot.step.backward"):
+                    total.backward()
+                for m in aux_modules:
+                    m.aux_loss = None
                 losses.append(loss.detach())
-                corrects.append(acc_fn(logits.detach(), lbl))
+        with span("picklebot.step.update"), policy.precision():
             metrics = {"loss": torch.stack(losses),
                        "correct": torch.stack(corrects),
                        "samples": float(feats.shape[0] * feats.shape[1]

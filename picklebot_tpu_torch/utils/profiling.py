@@ -1,4 +1,4 @@
-"""Profiling utilities: a device trace, steady-state timing, memory.
+"""Profiling utilities: a device trace, the program's spans in it, memory.
 
 Counterpart of ``picklebot_tpu/utils/profiling.py`` (the reference's
 cProfile of train.py, torch.profiler of profilemobilevit.py, and
@@ -8,8 +8,9 @@ pytorch_memlab):
     activities and, where a card is present, CUDA ones; written as a
     Chrome-trace JSON (``*.pt.trace.json``) into ``logdir``, which
     TensorBoard's profile plugin and Perfetto open.
-  * ``timeit_fn``: warm up, then time calls, each closed by
-    ``torch.cuda.synchronize`` on the card.
+  * ``span(name)``: a named range of the program in whatever
+    ``torch.profiler`` session is recording (``trace``, or any other);
+    a shared no-op when none is.
   * ``memory_stats``: the caching allocator's live, peak and limit bytes
     on a card; None on the CPU.
 """
@@ -17,10 +18,13 @@ pytorch_memlab):
 from __future__ import annotations
 
 import contextlib
-import time
-from typing import Callable, Optional
+from typing import Optional
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _profiler
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -36,34 +40,21 @@ def trace(logdir: str):
         yield prof
 
 
-def _sync(device):
-    if device is not None and torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
+def span(name: str):
+    """A context manager that records ``name`` over its block while a
+    torch profiler records, and the shared no-op otherwise: one attribute
+    read, no allocation. Every name starts with ``picklebot.``.
 
-
-def timeit_fn(fn: Callable, *args, warmup: int = 3, iters: int = 10,
-              device=None, **kwargs) -> dict:
-    """Warm up, then time ``iters`` calls of ``fn(*args, **kwargs)`` by
-    the host clock, each closed by a synchronize when ``device`` is a
-    card (default: the card, where there is one). Returns seconds."""
-    if device is None and torch.cuda.is_available():
-        device = torch.device("cuda", torch.cuda.current_device())
-    for _ in range(warmup):
-        fn(*args, **kwargs)
-    _sync(device)
-    times = []
-    for _ in range(iters):
-        t0 = time.perf_counter()
-        fn(*args, **kwargs)
-        _sync(device)
-        times.append(time.perf_counter() - t0)
-    times.sort()
-    return {
-        "mean_s": sum(times) / len(times),
-        "median_s": times[len(times) // 2],
-        "min_s": times[0],
-        "max_s": times[-1],
-    }
+    The range is an op-scope ``RecordFunction`` (the kind an aten op
+    opens), not ``torch.profiler.record_function``'s user scope: a
+    user-scope range that launches device work is mirrored on the device
+    as a ``gpu_user_annotation`` event spanning its kernels, which a
+    reader of the trace would take for device work. A CUDA kernel or copy
+    launched inside the span is put down to it by the launching runtime
+    call's place on the host timeline."""
+    if _profiler._is_profiler_enabled:
+        return _RecordFunctionFast(name)
+    return _NO_SPAN
 
 
 def memory_stats(device=None) -> Optional[dict]:

@@ -1,0 +1,7 @@
+"""``input_ms_per_clip.train``: see ``harness/spans.py`` ``phase_ms``."""
+
+from portbench.harness import spans
+
+
+def read(win):
+    return spans.phase_ms(win, "train", spans.INPUT, "clip")
