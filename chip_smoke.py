@@ -1496,6 +1496,263 @@ def fused_large_batch_cases():
     return res
 
 
+# the depthwise stencil's input a (B, T, H, W, E) at the bottlenecks of
+# the benchmark's two training cells: MobileNetLarge3D at bs 16 (15) and
+# MobileViT-s at bs 8 (7)
+DW_CELLS = (("MobileNetLarge3D", 16, GEOMETRIES),
+            ("MobileViT-s", 8, VIT_GEOMETRIES))
+# kernel against plain, both f32 sums of the same products rounded once:
+# they differ where an f32 sum taken in another order rounds the other
+# way, one bf16 ulp (2^-8 of a value) at most; f32 to F32_REL_TOL
+DW_BF16_REL_TOL = 2 ** -8
+# cuDNN's kernels that must not run under the fused backward's span
+CUDNN_CONV = ("convolve", "cudnn", "Nchw", "Nhwc", "nchw", "nhwc",
+              "implicit_gemm", "setTensor")
+
+
+def dw_case(shape, k, s, dtype, seed):
+    """Seeded a (B, T, H, W, E), wd (k, k, E) ~ U(+-1/k) and an output
+    gradient g on the card."""
+    import torch
+    from picklebot_tpu_torch.ops.fused_bottleneck import out_shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b, t, h, w, e = shape
+    a = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    wd = ((torch.rand((k, k, e), generator=gen, device="cuda") * 2 - 1)
+          / k).to(dtype)
+    g = torch.randn((b, *out_shape(t, h, w, k, s), e), generator=gen,
+                    device="cuda").to(dtype)
+    return a, wd, g
+
+
+def dw_bound(shape, k, s, elem):
+    """Least time of each of the stencil's three passes at this geometry:
+    each reads its inputs and writes its output once (stencil: a's frames
+    that an output frame reads, d; dgrad: g's valid frames, da; wgrad: a's
+    read frames and g's valid frames, dw); 2*k*k FLOPs per valid output
+    element each."""
+    from picklebot_tpu_torch.ops.fused_bottleneck import (out_shape,
+                                                          valid_frames)
+    b, t, h, w, e = shape
+    to, ho, wo = out_shape(t, h, w, k, s)
+    n = valid_frames(t, k, s)[1]
+    a_read, g_valid = b * n * h * w * e, b * n * ho * wo * e
+    weights = k * k * e
+    nbytes = {"stencil": a_read + b * to * ho * wo * e + weights,
+              "dgrad": g_valid + b * t * h * w * e + weights,
+              "wgrad": a_read + g_valid + weights}
+    name = "bfloat16" if elem == 2 else "float32"
+    return {p: roofline(v * elem, 2 * g_valid * k * k, name)
+            for p, v in nbytes.items()}
+
+
+def dw_library(a, wd, g, s):
+    """cuDNN's grouped conv3d forward and backward on the same tensors:
+    the recompute's old depthwise conv, timed as a yardstick only (the
+    port no longer calls it there)."""
+    import torch
+    from picklebot_tpu_torch.ops.conv import depthwise_conv
+    ar, wr = a.detach().requires_grad_(), wd.detach().requires_grad_()
+    return torch.autograd.grad(depthwise_conv(ar, wr, s), (ar, wr), g)
+
+
+def dw_rows(reps):
+    """The depthwise stencil's backward kernels against their plain
+    versions at the two training cells' 22 bottleneck geometries, bf16
+    (DW_BF16_REL_TOL) and f32 (F32_REL_TOL): stencil, dgrad, wgrad (its
+    plain version in the plan's range order), zero frames and unread
+    input frames exactly zero, each kernel's second call bit-equal; in
+    bf16 the plan, each kernel's device time from a trace, the plain
+    version's and cuDNN's grouped conv3d forward + backward's times by
+    CUDA events, and the passes' bounds. Sums per train microbatch of
+    each cell."""
+    import torch
+    from picklebot_tpu_torch.core.policy import DtypePolicy
+    from picklebot_tpu_torch.ops import fused_bottleneck as fb
+    rows, per_micro = [], {}
+    for model, batch, geometries in DW_CELLS:
+        sums = {"stencil": 0.0, "dgrad": 0.0, "wgrad": 0.0, "plain": 0.0,
+                "library": 0.0, "bound": 0.0}
+        for i, (shape, k, s, _, e, _) in enumerate(geometries):
+            shape = (batch, *shape[1:4], e)
+            b, t, h, w, _ = shape
+            first, n = fb.valid_frames(t, k, s)
+            p = k // 2
+            read = [ti for ti in range(t) if (ti + p) % s == 0]
+            row = {"model": model, "block": i, "a": list(shape), "k": k,
+                   "s": s}
+            for dtype in (torch.bfloat16, torch.float32):
+                tol = DW_BF16_REL_TOL if dtype == torch.bfloat16 \
+                    else F32_REL_TOL
+                tag = f"{model} dw block {i} {dtype}"
+                a, wd, g = dw_case(shape, k, s, dtype, 900 + 7 * i)
+                fns = {
+                    "stencil": (lambda: fb.dw_stencil(a, wd, s),
+                                lambda: fb.dw_stencil_reference(a, wd, s)),
+                    "dgrad": (lambda: fb.dw_dgrad(g, wd, s, shape),
+                              lambda: fb.dw_dgrad_reference(g, wd, s,
+                                                            shape)),
+                    "wgrad": (lambda: fb.dw_wgrad(a, g, k, s),
+                              lambda: fb.dw_wgrad_reference(a, g, k, s))}
+                got = {}
+                with DtypePolicy.f32().precision():
+                    for pas, (fn, plain) in fns.items():
+                        got[pas] = fn()
+                        want = plain()
+                        torch.cuda.synchronize()
+                        err, ref = check_close(f"{tag} {pas}", got[pas],
+                                               want, tol)
+                        if not torch.equal(got[pas], fn()):
+                            raise AssertionError(f"{tag} {pas}: two calls "
+                                                 "differ")
+                        row.setdefault(pas, {})[str(dtype)[6:]] = dict(
+                            err=err, max_ref=ref, bit_equal_repeat=True)
+                zero_out = torch.ones(got["stencil"].shape[1], dtype=bool,
+                                      device="cuda")
+                zero_out[first:first + n] = False
+                zero_in = torch.ones(t, dtype=bool, device="cuda")
+                zero_in[read] = False
+                if got["stencil"][:, zero_out].any() or \
+                        got["dgrad"][:, zero_in].any():
+                    raise AssertionError(f"{tag}: a zero frame or an "
+                                         "unread input frame is not zero")
+                if dtype != torch.bfloat16:
+                    continue
+                bounds = dw_bound(shape, k, s, 2)
+                for pas, (fn, plain) in fns.items():
+                    row[pas].update(
+                        plan=fb._dw_plan(shape, k, s, dtype, pas)._asdict(),
+                        device_ms=device_ms(fn, reps), ms=time_ms(fn, reps),
+                        **bounds[pas])
+                    # a trace without device events: the events' time
+                    sums[pas] += row[pas]["device_ms"] or row[pas]["ms"]
+                    sums["bound"] += bounds[pas]["bound_ms"]
+                row["plain_ms"] = sum(time_ms(plain, reps)
+                                      for _, plain in fns.values())
+                row["library_ms"] = time_ms(lambda: dw_library(a, wd, g, s),
+                                            reps)
+                row["library_device_ms"] = device_ms(
+                    lambda: dw_library(a, wd, g, s), reps)
+                sums["plain"] += row["plain_ms"]
+                sums["library"] += (row["library_device_ms"]
+                                    or row["library_ms"])
+                del a, wd, g, got
+            row["clocks_after_trace"] = sm_clocks()
+            emit({"phase": "kernels", "stencil_backward": row})
+            rows.append(row)
+        per_micro[model] = dict(sums, kernels=sums["stencil"] + sums["dgrad"]
+                                + sums["wgrad"], batch=batch)
+        emit({"phase": "kernels", "stencil_backward_per_microbatch": model,
+              **per_micro[model]})
+    return {"rows": rows, "per_microbatch_ms": per_micro}
+
+
+def dw_whole_backward():
+    """One whole ``FusedBottleneckFn`` backward at each of the 22 cell
+    geometries (bf16): every input's gradient against the cuDNN recompute
+    (``fused_bottleneck_reference`` differentiated by autograd, the old
+    path), within the flash bounds (BF16_REL_TOL of max|ref|, BF16_RMS_TOL
+    rms)."""
+    import torch
+    from picklebot_tpu_torch.ops import fused_bottleneck as fb
+    out = []
+    names = ("x", "w1", "wd", "w2", "se_w1", "se_b1", "se_w2", "se_b2")
+    for model, batch, geometries in DW_CELLS:
+        for i, (shape, k, s, se, e, co) in enumerate(geometries):
+            shape = (batch, *shape[1:])
+            x, w = make_case(shape, k, e, co, torch.bfloat16, seed=700 + i)
+            args = [x] + [w[n] for n in names[1:]]
+            if not se:
+                args[4:] = [None] * 4
+            ins = [None if v is None else v.detach().requires_grad_()
+                   for v in args]
+            outs = fb.fused_bottleneck(*ins, k, s, se)
+            g = torch.randn(outs.shape, device="cuda", generator=(
+                torch.Generator(device="cuda").manual_seed(800 + i))).to(
+                    outs.dtype)
+            live = [v for v in ins if v is not None]
+            got = torch.autograd.grad(outs, live, g)
+            old = [v.detach().requires_grad_() if v is not None else None
+                   for v in args]
+            want = torch.autograd.grad(
+                fb.fused_bottleneck_reference(*old, k, s, se),
+                [v for v in old if v is not None], g)
+            torch.cuda.synchronize()
+            live_names = [n for n, v in zip(names, ins) if v is not None]
+            out.append({"model": model, "block": i, **{
+                n: check_bf16_flash(f"{model} block {i} d{n}", gv, wv)
+                for n, gv, wv in zip(live_names, got, want)}})
+            del x, w, args, ins, outs, g, got, want, old
+    emit({"phase": "kernels", "whole_backward": len(out),
+          "worst_rel": max(v["err"] / max(v["max_ref"], 1e-30)
+                           for r in out for n, v in r.items()
+                           if isinstance(v, dict))})
+    return out
+
+
+def dw_train_microbatch():
+    """One train microbatch (forward and backward, bf16) of each cell's
+    model at its batch on 32x224x224 clips: the fused counters' deltas
+    exact (15 of each stencil key in MobileNetLarge3D, 7 in MobileViT-s),
+    and in a trace of it no cuDNN conv kernel launched under the span
+    ``picklebot.fused_bottleneck.backward``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from picklebot_tpu_torch.ops import fused_bottleneck as fb
+    from picklebot_tpu_torch.ops.linear import ChannelDropout, Dropout
+    from picklebot_tpu_torch.train.losses import cross_entropy
+    from portbench.harness import spans, trace
+    res = {}
+    for label, make, batch, want in (
+            ("MobileNetLarge3D", large3d, 16,
+             {"pool": 8, "main": 15, **dw(15)}),
+            ("MobileViT-s", mobilevit_s, 8, {"main": 7, **dw(7)})):
+        model = make().cuda().train()
+        for mod in model.modules():            # no dropout generator here
+            if isinstance(mod, (ChannelDropout, Dropout)):
+                mod.p = 0.0
+        gen = torch.Generator(device="cuda").manual_seed(31)
+        x = torch.rand((batch, 32, 224, 224, 3), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+        lbl = torch.arange(batch, device="cuda") % 13
+
+        def micro():
+            cross_entropy(model(x), lbl).backward()
+        micro()
+        torch.cuda.synchronize()
+        before = dict(fb.LAUNCHES)
+        micro()
+        torch.cuda.synchronize()
+        delta = {k: v - before[k] for k, v in fb.LAUNCHES.items()}
+        if delta != {k: want.get(k, 0) for k in delta}:
+            raise AssertionError(f"{label} train microbatch: fused launches "
+                                 f"{delta}, want {want}")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function(trace.WINDOW_SPAN):
+                micro()
+                torch.cuda.synchronize()
+        att = spans.attribute(*trace.events(prof))
+        if att is None:
+            raise AssertionError(f"{label}: the trace's launches and device "
+                                 "events do not pair")
+        under = att.device.get(spans.FUSED_BACKWARD, [])
+        names = sorted({d.name for d in under})
+        bad = [n for n in names if any(c in n for c in CUDNN_CONV)]
+        if not under or bad:
+            raise AssertionError(f"{label}: under {spans.FUSED_BACKWARD} "
+                                 f"{len(under)} device events, cuDNN conv "
+                                 f"kernels {bad[:5]}")
+        res[label] = {"launches": delta, "events_under_span": len(under),
+                      "kernels_under_span": [n[:100] for n in names],
+                      "span_busy_ms": att.busy_us.get(
+                          spans.FUSED_BACKWARD, 0.0) / 1e3}
+        emit({"phase": "kernels", "stencil_backward_train": label,
+              **res[label]})
+        del model, x, prof
+    return res
+
+
 def phase_kernels():
     return (*fused_phase(), *flash_phase(), conv_rows(reps=5))
 
@@ -1512,7 +1769,10 @@ def fused_phase():
                                                   reps=5)
         rows += model_rows
     fused_f32_case()
-    return rows, fused_per, fused_large_batch_cases()
+    large_batch = fused_large_batch_cases()
+    stencil = {"rows": dw_rows(reps=5), "whole_backward": dw_whole_backward(),
+               "train_microbatch": dw_train_microbatch()}
+    return rows, fused_per, large_batch, stencil
 
 
 def flash_phase():
@@ -1568,6 +1828,12 @@ def launches_wanted(**by_module):
     """Every kernel's wanted count: those named, and 0 for every other."""
     return {name: {k: by_module.get(name, {}).get(k, 0) for k in c}
             for name, c in all_counters().items()}
+
+
+def dw(n):
+    """The depthwise stencil's backward launches of ``n`` fused
+    bottleneck backwards: each runs the stencil, dgrad and wgrad once."""
+    return {"dw_stencil": n, "dw_dgrad": n, "dw_wgrad": n}
 
 
 @contextlib.contextmanager
@@ -3465,7 +3731,7 @@ def phase_train_backends(counters, feats, labels):
     import math
     import torch
     out = {}
-    want = launches_wanted(fused={"main": 7},
+    want = launches_wanted(fused={"main": 7, **dw(7)},
                            flash={"heads": 9, "dq": 9, "dkv": 9},
                            conv={"fwd": 6, "dx": 6})
     for backend in ("pallas", "pallas_packed"):
@@ -3654,15 +3920,15 @@ TRAINX_CUTS = dict(TRAIN_CUTS, synthetic_shape=[40, 224, 224], max_frames=32,
 TRAINX_INTERRUPT_AFTER = 2    # run B: SIGTERM after optimizer step 2
 # Large3D launches with remat 1: every bottleneck is a call of the root,
 # so each train microbatch runs its pool and main passes twice (forward,
-# recompute); eval batches once
-TRAINX_PER_MICRO = {"pool": 16, "main": 30}
+# recompute), the backward's stencil kernels once; eval batches once
+TRAINX_PER_MICRO = {"pool": 16, "main": 30, **dw(15)}
 TRAINX_PER_EVAL = {"pool": 8, "main": 15}
 # MobileViT-s, one bs-8 microbatch with remat 1: every forward kernel
 # twice, the backward kernels once
-VIT_REMAT_LAUNCHES = {0: {"fused": {"main": 7},
+VIT_REMAT_LAUNCHES = {0: {"fused": {"main": 7, **dw(7)},
                           "flash": {"packed": 9, "dq": 9, "dkv": 9},
                           "conv": {"fwd": 6, "dx": 6}},
-                      1: {"fused": {"main": 14},
+                      1: {"fused": {"main": 14, **dw(7)},
                           "flash": {"packed": 18, "dq": 9, "dkv": 9},
                           "conv": {"fwd": 12, "dx": 6}}}
 REMAT_F32_GRAD_TOL = 1e-6     # of max|ref|, every gradient and buffer
@@ -3806,7 +4072,7 @@ def phase_trainx_cli(counters):
 
         def want(micro, evals):
             return {k: TRAINX_PER_MICRO[k] * micro
-                    + TRAINX_PER_EVAL[k] * evals
+                    + TRAINX_PER_EVAL.get(k, 0) * evals
                     for k in TRAINX_PER_MICRO}
 
         a, launch_a, wall_a, _ = _cli_run(paths["a"], counters)
@@ -4130,7 +4396,8 @@ def dp_world1(counters):
             else:
                 os.environ[k] = v
     want = launches_wanted(fused={"pool": 8 * 2 * DP_STEPS,
-                                  "main": 15 * 2 * DP_STEPS})
+                                  "main": 15 * 2 * DP_STEPS,
+                                  **dw(15 * 2 * DP_STEPS)})
     if launches != want:
         raise AssertionError(f"dp nccl world 1 launches {launches}, want "
                              f"{want}")
@@ -4345,7 +4612,8 @@ def dp_gloo(counters):
                                   weights_only=False)
                  for name, *_ in DP_JOBS}
     want = launches_wanted(fused={"pool": 8 * DP_STEPS,
-                                  "main": 15 * DP_STEPS})
+                                  "main": 15 * DP_STEPS,
+                                  **dw(15 * DP_STEPS)})
     checks = {}
     for name, *_ in DP_JOBS:
         for r in range(2):
@@ -4835,7 +5103,7 @@ def phase_layouts(counters, gpu_line):
                     ranks.append(json.load(f))
             flash_n, engaged = per_step[mode]
             want = launches_wanted(
-                fused={"main": 7 * LAYOUT_STEPS},
+                fused={"main": 7 * LAYOUT_STEPS, **dw(7 * LAYOUT_STEPS)},
                 flash={"packed": flash_n * LAYOUT_STEPS,
                        "dq": flash_n * LAYOUT_STEPS,
                        "dkv": flash_n * LAYOUT_STEPS},
@@ -5242,7 +5510,8 @@ def phase_pp_ep(counters, gpu_line):
                 flash_n = (PPEP_FLASH_PP[job_kw["pipeline_microbatches"]]
                            if mode == "pp" else sum(VIT_PACKED.values()))
                 want = launches_wanted(
-                    fused={"main": 7 * LAYOUT_STEPS},
+                    fused={"main": 7 * LAYOUT_STEPS,
+                           **dw(7 * LAYOUT_STEPS)},
                     flash={"packed": flash_n * LAYOUT_STEPS,
                            "dq": flash_n * LAYOUT_STEPS,
                            "dkv": flash_n * LAYOUT_STEPS},
@@ -5580,14 +5849,15 @@ def main(argv=None):
                              f"to the packed kernel; VIT_PACKED says "
                              f"{VIT_PACKED}")
     rows = fused_per = large_batch = flash = flash_bwd = sweep = conv = None
+    stencil = None
     large = vit = small = movinet = None
     sass = {}
     t0 = time.perf_counter()
     if selected("kernels"):
-        rows, fused_per, large_batch, flash, flash_bwd, sweep, conv = \
-            phase_kernels()
+        (rows, fused_per, large_batch, stencil, flash, flash_bwd, sweep,
+         conv) = phase_kernels()
     if "fused" in only and not selected("kernels"):
-        rows, fused_per, large_batch = fused_phase()
+        rows, fused_per, large_batch, stencil = fused_phase()
     if "conv" in only and not selected("kernels"):
         conv = conv_rows(reps=5)
     if "flash" in only and not selected("kernels"):
@@ -5596,6 +5866,12 @@ def main(argv=None):
         sass["fused_bottleneck"] = sass_check(
             libs["fused_bottleneck"], "fused_bottleneck",
             ("pool_bf16_kernel", "main_bf16_kernel"))
+        dw_local = {n: v for n, v in sass["fused_bottleneck"].items()
+                    if "dw_" in n and any(v.get(f, 1) for f in (
+                        "stack_frame", "spill_stores", "spill_loads"))}
+        if dw_local:
+            raise AssertionError(f"stencil backward kernels in local "
+                                 f"memory: {dw_local}")
     if selected("kernels") or "conv" in only:
         sass["folded_conv"] = sass_check(libs["folded_conv"], "folded_conv",
                                          ("conv_bf16_kernel",))
@@ -5635,16 +5911,18 @@ def main(argv=None):
         packed = sum(VIT_PACKED.values())
         cli_runs = [
             ("MobileViT-s", "mobilevit_s.json",
-             launches_wanted(fused={"main": 7},
+             launches_wanted(fused={"main": 7, **dw(7)},
                              flash={"packed": packed, "dq": packed,
                                     "dkv": packed},
                              conv={"fwd": 6, "dx": 6}),
              launches_wanted(fused={"main": 7}, flash={"packed": packed},
                              conv={"fwd": 6})),
             ("MobileNetLarge3D", "mobilenet_large_50k.json",
-             *[launches_wanted(fused={"pool": 8, "main": 15})] * 2),
+             launches_wanted(fused={"pool": 8, "main": 15, **dw(15)}),
+             launches_wanted(fused={"pool": 8, "main": 15})),
             ("MobileNetSmall3D", "mobilenet_small_50k.json",
-             *[launches_wanted(fused={"pool": 9, "main": 11})] * 2),
+             launches_wanted(fused={"pool": 9, "main": 11, **dw(11)}),
+             launches_wanted(fused={"pool": 9, "main": 11})),
             ("MoViNetA2", "movinet_a2_50k.json", *[launches_wanted()] * 2)]
         for label, cfg_file, per_micro, per_eval in cli_runs:
             t0 = time.perf_counter()
@@ -5716,7 +5994,8 @@ def main(argv=None):
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     record = {"card": gpu_line, "seconds": seconds, "sass": sass,
-              "geometries": rows, "large_batch": large_batch, "flash": flash,
+              "geometries": rows, "large_batch": large_batch,
+              "stencil_backward": stencil, "flash": flash,
               "flash_bwd": flash_bwd, "packed_min_seq_sweep": sweep,
               "folded_conv": conv,
               "serve": {"MobileNetLarge3D": large, "MobileViT-s": vit,

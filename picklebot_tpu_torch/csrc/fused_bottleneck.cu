@@ -64,6 +64,46 @@
 // to a workspace (splits, B*T'*H'*W', Co) and main_split_sum_kernel adds
 // them in order and rounds once. No atomics: two calls give the same bits.
 //
+// The depthwise stencil's backward (dw_stencil_*, dw_dgrad_*, dw_wgrad_*,
+// dw_wgrad_sum_kernel). These replace no TPU kernel: the JAX package's
+// backward (_fb_bwd) is an XLA recompute of the plain chain, and so is
+// the port's (FusedBottleneckFn.backward). They were added because that
+// recompute's one op that is neither a matmul nor elementwise, the
+// (1,k,k) depthwise conv with the stride on T, went to cuDNN's generic
+// grouped conv3d: thousands of launches a block, layout transposes both
+// ways, and a bf16 weight gradient 100-350x over the bound of all three
+// passes together. The recompute now runs the stencil's forward, its
+// input gradient (dx) and its weight gradient (dw) here, on the
+// channels-last (B, T, H, W, E) tensors the chain already has.
+//   What bounds them: bytes. Each pass reads the expanded tensor (or its
+// gradient) and writes the other side once: 2*k*k FLOPs per output
+// element against 4 bytes (bf16), under 13 FLOP/byte at k = 5, far under
+// the ridge. dw writes only k*k*E values.
+//   Design. A block owns a tile of pixels of one frame and a chunk of ec
+// channels (16..64, from the plan; channels are the contiguous axis) and
+// stages its input tile with the (k-1)-pixel halo in shared memory once,
+// by 16-byte cp.async where E allows (else scalar), zero outside the
+// frame. A thread owns a pair of channels (4 bytes of bf16, 8 of f32, so
+// a warp reads consecutive words) and walks the tile's pixels, all k*k
+// taps from shared memory, f32 accumulation, one rounding.
+//   stencil: one output tile; output frames whose input frame lies
+//     outside [0, T) (the T quirk's zero frames) are written as zeros.
+//   dgrad:   one input tile; it stages the output-gradient rows the tile
+//     reads and each pixel gathers from the at most ceil(k/s)^2 outputs
+//     that read it: no scatter, no atomics. Input frames that no output
+//     frame reads (t + k//2 not a multiple of s) are written as zeros.
+//   wgrad:   a block takes its chunk over a contiguous range of the
+//     (sample, valid output frame, output tile) items, the next item's
+//     tiles arriving by cp.async while this one is worked on. A thread
+//     keeps the k*k partial sums of its two channels in registers (K = 3
+//     or 5: 18 or 50 floats; any other k keeps them in shared memory).
+//     The block's pixel groups are added in a fixed order; with one range
+//     the block writes dw rounded, else f32 partials (splits, k*k, E)
+//     that dw_wgrad_sum_kernel adds in range order and rounds once: dw is
+//     the same bits from run to run, as the pool pass's split is.
+// The same templates serve bf16 and f32 (the f32 policy and the
+// benchmark's f32 readings).
+//
 // Both grids are one-dimensional (grid.x takes up to 2^31 - 1 blocks, grid.y
 // only 65,535), so no batch size the reference takes is refused.
 //
@@ -73,7 +113,8 @@
 // That holds only because the convs carry no bias (the wrapper checks).
 //
 // Layouts (row-major, contiguous): x (B,T,H,W,C); w1 (C,E); wd (k*k,E);
-// w2 (E,Co); scale (B,E) f32; pooled (B,E) f32; out (B,T',H',W',Co).
+// w2 (E,Co); scale (B,E) f32; pooled (B,E) f32; out (B,T',H',W',Co); the
+// stencil's a and da (B,T,H,W,E), d and g (B,T',H',W',E), dw (k*k,E).
 // x, weights and out share one dtype: float (dtype 0) or bf16 (dtype 1).
 
 #include <cuda_bf16.h>
@@ -855,6 +896,461 @@ main_split_sum_kernel(const float* __restrict__ part, bf16* __restrict__ out,
 }
 
 // ---------------------------------------------------------------------------
+// the depthwise stencil's backward: stencil, dgrad, wgrad (bf16 and f32)
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxDwChunk = 64;
+
+enum DwKind { kStencil = 0, kDgrad = 1, kWgrad = 2 };
+
+struct DwGeom {
+  int B, T, H, W, E, k, s, p;
+  int To, Ho, Wo;
+  int th, tw;             // tile: output pixels (stencil, wgrad), input
+                          // pixels (dgrad)
+  int ec, n_chunks;       // channels per chunk, chunks
+  int tpp, groups;        // threads per pixel (ec / 2), pixel groups
+  int rows, cols;         // the staged tile: the input with its halo
+                          // (stencil, wgrad), the gradient rows (dgrad)
+  int n_tw, n_tiles;      // tiles along W, tiles per frame
+  int to_first, n_valid;  // output frames that read an input frame
+};
+
+// Rows of the staged tile for a tile of n pixels along one axis.
+__host__ __device__ inline int dw_span(int n, int k, int s, int kind) {
+  if (kind != kDgrad) return (n - 1) * s + k;
+  // output rows floor((h0+p-k+1)/s) .. floor((h0+n-1+p)/s): at most this
+  return s == 1 ? n + k - 1 : (n + k - 2) / s + 2;
+}
+
+// Byte offsets of a dw kernel's shared memory (16-byte aligned); the
+// wrapper's plan mirrors it (ops/fused_bottleneck.py _dw_smem).
+struct DwLayout {
+  size_t xs, gs, red, acc, total;
+  size_t xs_stage, gs_stage;          // elements per stage
+};
+
+__host__ __device__ inline DwLayout make_dw_layout(const DwGeom& g, int kind,
+                                                   int elem) {
+  DwLayout l;
+  l.xs_stage = size_t(g.rows) * g.cols * g.ec;
+  l.gs_stage = size_t(g.th) * g.tw * g.ec;
+  size_t o = 0;
+  l.xs = o;
+  if (kind != kWgrad) {
+    o = align16(o + l.xs_stage * elem);
+    l.gs = l.red = l.acc = o;
+  } else {
+    o = align16(o + l.xs_stage * elem);
+    o = align16(o + l.xs_stage * elem);     // the second stage
+    l.gs = o;
+    o = align16(o + 2 * l.gs_stage * elem);
+    l.red = o;
+    o = align16(o + size_t(g.groups) * g.ec * 4);
+    l.acc = o;
+    if (g.k != 3 && g.k != 5)              // wgrad's sums, any other k
+      o = align16(o + size_t(g.k) * g.k * kThreads * 8);
+  }
+  l.total = o;
+  return l;
+}
+
+// A pair of channels as float2, and the element type's conversions.
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<float> {
+  static __device__ __forceinline__ float2 get2(const float* p) {
+    return *reinterpret_cast<const float2*>(p);
+  }
+  static __device__ __forceinline__ void put2(float* p, float2 v) {
+    *reinterpret_cast<float2*>(p) = v;
+  }
+  static __device__ __forceinline__ float to_f(float v) { return v; }
+  static __device__ __forceinline__ float from_f(float v) { return v; }
+};
+
+template <>
+struct Elem<bf16> {
+  static __device__ __forceinline__ float2 get2(const bf16* p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+  static __device__ __forceinline__ void put2(bf16* p, float2 v) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v.x, v.y);
+  }
+  static __device__ __forceinline__ float to_f(bf16 v) {
+    return __bfloat162float(v);
+  }
+  static __device__ __forceinline__ bf16 from_f(float v) {
+    return __float2bfloat16(v);
+  }
+};
+
+// Channels e, e + 1 of one pixel (dst points at channel e), rounded once;
+// as one store where `pairs` (E even, base aligned), else by element.
+template <typename T>
+__device__ __forceinline__ void store_pair(T* dst, int e, int E, float2 v,
+                                           bool pairs) {
+  if (pairs && e + 1 < E) {
+    Elem<T>::put2(dst, v);
+  } else {
+    if (e < E) dst[0] = Elem<T>::from_f(v.x);
+    if (e + 1 < E) dst[1] = Elem<T>::from_f(v.y);
+  }
+}
+
+// The weight pair of tap t for channels e, e + 1 (zero past E).
+template <typename T>
+__device__ __forceinline__ float2 dw_weight(const T* __restrict__ wd,
+                                           const DwGeom& g, int t, int e) {
+  const T* w = wd + size_t(t) * g.E + e;
+  return make_float2(e < g.E ? Elem<T>::to_f(w[0]) : 0.f,
+                     e + 1 < g.E ? Elem<T>::to_f(w[1]) : 0.f);
+}
+
+// rows x cols pixels of one (nr, nc) frame from pixel (r0, c0) on (either
+// may be negative), channels [e0, e0 + ec), into sh (pixel-major, ec a
+// pixel); zero outside the frame and past E. 16-byte cp.async where vec
+// (E * sizeof(T) a multiple of 16, base aligned), else scalar.
+template <typename T>
+__device__ void load_dw_tile(const T* __restrict__ frame, T* sh,
+                             const DwGeom& g, int nr, int nc, int r0, int c0,
+                             int rows, int cols, int e0, bool vec) {
+  constexpr int V = 16 / sizeof(T);
+  const int pieces = g.ec / V, n = rows * cols * pieces;
+  for (int idx = threadIdx.x; idx < n; idx += kThreads) {
+    const int q = idx / pieces, c = (idx - q * pieces) * V;
+    const int qr = q / cols;
+    const int r = r0 + qr, cc = c0 + (q - qr * cols);
+    const bool pos = r >= 0 && r < nr && cc >= 0 && cc < nc;
+    const T* src = pos ? frame + (size_t(r) * nc + cc) * g.E + e0 + c : frame;
+    T* dst = sh + size_t(q) * g.ec + c;
+    if (vec) {
+      cp_async16(smem_addr(dst), src, pos && e0 + c < g.E);
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        dst[j] = pos && e0 + c + j < g.E ? src[j] : Elem<T>::from_f(0.f);
+    }
+  }
+}
+
+// r = q * s exactly? (q = r / s); s is the same for the whole block
+__device__ __forceinline__ bool on_stride(int r, int s, int& q) {
+  if (s == 1) { q = r; return true; }
+  if (s == 2) { q = r >> 1; return (r & 1) == 0; }
+  q = r / s;
+  return r == q * s;
+}
+
+__device__ __forceinline__ int floor_div(int a, int b) {
+  return a >= 0 ? a / b : -((-a + b - 1) / b);
+}
+
+// d[b,t',h',w',e] = sum_{i,j} a[b, t's-p, h's-p+i, w's-p+j, e] wd[i,j,e].
+// Block: (chunk, output frame, tile), tile fastest.
+template <typename T, int K>
+__device__ __forceinline__ void dw_stencil_body(const T* __restrict__ a,
+                                                const T* __restrict__ wd,
+                                                T* __restrict__ out,
+                                                const DwGeom& g, bool vec,
+                                                bool pairs) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* xs = reinterpret_cast<T*>(smem);
+  const int k = K > 0 ? K : g.k;
+  const int tile = blockIdx.x % g.n_tiles, rest = blockIdx.x / g.n_tiles;
+  const int n = rest % (g.B * g.To), chunk = rest / (g.B * g.To);
+  const int b = n / g.To, to = n % g.To, ti = to * g.s - g.p;
+  const int e0 = chunk * g.ec;
+  const int h0 = (tile / g.n_tw) * g.th, w0 = (tile % g.n_tw) * g.tw;
+  const bool frame_in = ti >= 0 && ti < g.T;    // else a zero frame
+  if (frame_in) {
+    load_dw_tile(a + (size_t(b) * g.T + ti) * g.H * g.W * g.E, xs, g, g.H,
+                 g.W, h0 * g.s - g.p, w0 * g.s - g.p, g.rows, g.cols, e0, vec);
+    cp_async_commit();
+    cp_async_wait<0>();
+  }
+  __syncthreads();
+  const int grp = threadIdx.x / g.tpp, el = 2 * (threadIdx.x % g.tpp);
+  if (grp >= g.groups) return;
+  const int e = e0 + el;
+  float2 w[K > 0 ? K * K : 1];
+  if constexpr (K > 0) {
+#pragma unroll
+    for (int t = 0; t < K * K; ++t) w[t] = dw_weight(wd, g, t, e);
+  }
+  T* out_frame = out + size_t(n) * g.Ho * g.Wo * g.E + e;
+  for (int pix = grp; pix < g.th * g.tw; pix += g.groups) {
+    const int i = pix / g.tw, j = pix - i * g.tw;
+    if (h0 + i >= g.Ho || w0 + j >= g.Wo) continue;
+    float2 acc = make_float2(0.f, 0.f);
+    if (frame_in) {
+      const T* base = xs + size_t(i * g.s * g.cols + j * g.s) * g.ec + el;
+#pragma unroll
+      for (int dy = 0; dy < k; ++dy) {
+        const T* row = base + size_t(dy) * g.cols * g.ec;
+#pragma unroll
+        for (int dx = 0; dx < k; ++dx) {
+          const float2 v = Elem<T>::get2(row + dx * g.ec);
+          float2 wt;
+          if constexpr (K > 0)
+            wt = w[dy * K + dx];
+          else
+            wt = dw_weight(wd, g, dy * k + dx, e);
+          acc.x = fmaf(v.x, wt.x, acc.x);
+          acc.y = fmaf(v.y, wt.y, acc.y);
+        }
+      }
+    }
+    store_pair(out_frame + (size_t(h0 + i) * g.Wo + w0 + j) * g.E, e, g.E,
+               acc, pairs);
+  }
+}
+
+// da[b,t,h,w,e] = sum over the taps (i,j) with h+p-i = h's, w+p-j = w's
+// (s divides both) of g[b,t',h',w',e] wd[i,j,e], where t' = (t+p)/s;
+// zero where s does not divide t+p. Block: (chunk, input frame, tile).
+template <typename T, int K>
+__device__ __forceinline__ void dw_dgrad_body(const T* __restrict__ gr,
+                                              const T* __restrict__ wd,
+                                              T* __restrict__ da,
+                                              const DwGeom& g, bool vec,
+                                              bool pairs) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* gs = reinterpret_cast<T*>(smem);
+  const int k = K > 0 ? K : g.k;
+  const int tile = blockIdx.x % g.n_tiles, rest = blockIdx.x / g.n_tiles;
+  const int n = rest % (g.B * g.T), chunk = rest / (g.B * g.T);
+  const int b = n / g.T, ti = n % g.T;
+  const int e0 = chunk * g.ec;
+  const int h0 = (tile / g.n_tw) * g.th, w0 = (tile % g.n_tw) * g.tw;
+  int to;
+  // t + p >= 0, and (t + p) / s < T' for every t < T
+  const bool read = on_stride(ti + g.p, g.s, to);
+  const int gh0 = floor_div(h0 + g.p - k + 1, g.s);
+  const int gw0 = floor_div(w0 + g.p - k + 1, g.s);
+  if (read) {
+    load_dw_tile(gr + (size_t(b) * g.To + to) * g.Ho * g.Wo * g.E, gs, g,
+                 g.Ho, g.Wo, gh0, gw0, g.rows, g.cols, e0, vec);
+    cp_async_commit();
+    cp_async_wait<0>();
+  }
+  __syncthreads();
+  const int grp = threadIdx.x / g.tpp, el = 2 * (threadIdx.x % g.tpp);
+  if (grp >= g.groups) return;
+  const int e = e0 + el;
+  float2 w[K > 0 ? K * K : 1];
+  if constexpr (K > 0) {
+#pragma unroll
+    for (int t = 0; t < K * K; ++t) w[t] = dw_weight(wd, g, t, e);
+  }
+  T* da_frame = da + size_t(n) * g.H * g.W * g.E + e;
+  for (int pix = grp; pix < g.th * g.tw; pix += g.groups) {
+    const int i = pix / g.tw, j = pix - i * g.tw;
+    const int hi = h0 + i, wi = w0 + j;
+    if (hi >= g.H || wi >= g.W) continue;
+    float2 acc = make_float2(0.f, 0.f);
+    if (read) {
+      // tile rows of output row h' = (hi + p - dy) / s, counted from gh0
+      const int rh = hi + g.p - gh0 * g.s, rw = wi + g.p - gw0 * g.s;
+#pragma unroll
+      for (int dy = 0; dy < k; ++dy) {
+        int qy;
+        if (!on_stride(rh - dy, g.s, qy)) continue;
+        const T* row = gs + size_t(qy) * g.cols * g.ec + el;
+#pragma unroll
+        for (int dx = 0; dx < k; ++dx) {
+          int qx;
+          if (!on_stride(rw - dx, g.s, qx)) continue;
+          const float2 v = Elem<T>::get2(row + qx * g.ec);
+          float2 wt;
+          if constexpr (K > 0)
+            wt = w[dy * K + dx];
+          else
+            wt = dw_weight(wd, g, dy * k + dx, e);
+          acc.x = fmaf(v.x, wt.x, acc.x);
+          acc.y = fmaf(v.y, wt.y, acc.y);
+        }
+      }
+    }
+    store_pair(da_frame + (size_t(hi) * g.W + wi) * g.E, e, g.E, acc, pairs);
+  }
+}
+
+// dw[i,j,e] = sum over the valid output positions (b,t',h',w') of
+// g[b,t',h',w',e] a[b, t's-p, h's-p+i, w's-p+j, e], per block over one
+// range of the (sample, valid frame, tile) items; blockIdx.x = chunk *
+// splits + split.
+template <typename T, int K>
+__device__ __forceinline__ void dw_wgrad_body(const T* __restrict__ a,
+                                              const T* __restrict__ gr,
+                                              T* __restrict__ dwd,
+                                              float* __restrict__ part,
+                                              const DwGeom& g, int splits,
+                                              bool vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const DwLayout l = make_dw_layout(g, kWgrad, sizeof(T));
+  T* xs = reinterpret_cast<T*>(smem + l.xs);
+  T* gs = reinterpret_cast<T*>(smem + l.gs);
+  float* red = reinterpret_cast<float*>(smem + l.red);
+  float2* accs = reinterpret_cast<float2*>(smem + l.acc);
+  const int k = K > 0 ? K : g.k, kk = k * k;
+  const int split = blockIdx.x % splits, chunk = blockIdx.x / splits;
+  const int e0 = chunk * g.ec;
+  const long long per_b = (long long)g.n_valid * g.n_tiles;
+  const long long items = g.B * per_b;
+  const long long lo = items * split / splits;
+  const long long hi = items * (split + 1) / splits;
+  const int grp = threadIdx.x / g.tpp, el = 2 * (threadIdx.x % g.tpp);
+  const bool active = grp < g.groups;
+
+  auto load_item = [&](long long it, int buf) {
+    const int b = int(it / per_b), rem = int(it % per_b);
+    const int to = g.to_first + rem / g.n_tiles, tile = rem % g.n_tiles;
+    const int h0 = (tile / g.n_tw) * g.th, w0 = (tile % g.n_tw) * g.tw;
+    load_dw_tile(a + (size_t(b) * g.T + to * g.s - g.p) * g.H * g.W * g.E,
+                 xs + buf * l.xs_stage, g, g.H, g.W, h0 * g.s - g.p,
+                 w0 * g.s - g.p, g.rows, g.cols, e0, vec);
+    load_dw_tile(gr + (size_t(b) * g.To + to) * g.Ho * g.Wo * g.E,
+                 gs + buf * l.gs_stage, g, g.Ho, g.Wo, h0, w0, g.th, g.tw,
+                 e0, vec);
+  };
+
+  float2 acc[K > 0 ? K * K : 1];
+  if constexpr (K > 0) {
+#pragma unroll
+    for (int t = 0; t < K * K; ++t) acc[t] = make_float2(0.f, 0.f);
+  } else {
+    for (int t = 0; t < kk; ++t)
+      accs[t * kThreads + threadIdx.x] = make_float2(0.f, 0.f);
+  }
+  if (lo < hi) load_item(lo, 0);
+  cp_async_commit();
+  for (long long it = lo; it < hi; ++it) {
+    const int buf = int(it - lo) & 1;
+    if (it + 1 < hi) load_item(it + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();                // this item's tiles have landed ...
+    __syncthreads();                   // ... for every thread
+    const int tile = int(it % per_b) % g.n_tiles;
+    const int h0 = (tile / g.n_tw) * g.th, w0 = (tile % g.n_tw) * g.tw;
+    const T* xb = xs + buf * l.xs_stage + el;
+    const T* gb = gs + buf * l.gs_stage + el;
+    for (int pix = grp; active && pix < g.th * g.tw; pix += g.groups) {
+      const int i = pix / g.tw, j = pix - i * g.tw;
+      if (h0 + i >= g.Ho || w0 + j >= g.Wo) continue;
+      const float2 gv = Elem<T>::get2(gb + size_t(pix) * g.ec);
+      const T* base = xb + size_t(i * g.s * g.cols + j * g.s) * g.ec;
+#pragma unroll
+      for (int dy = 0; dy < k; ++dy) {
+#pragma unroll
+        for (int dx = 0; dx < k; ++dx) {
+          const float2 v =
+              Elem<T>::get2(base + size_t(dy * g.cols + dx) * g.ec);
+          if constexpr (K > 0) {
+            float2& r = acc[dy * K + dx];
+            r.x = fmaf(gv.x, v.x, r.x);
+            r.y = fmaf(gv.y, v.y, r.y);
+          } else {
+            float2& r = accs[(dy * k + dx) * kThreads + threadIdx.x];
+            r.x = fmaf(gv.x, v.x, r.x);
+            r.y = fmaf(gv.y, v.y, r.y);
+          }
+        }
+      }
+    }
+    __syncthreads();                   // done with buf before it refills
+  }
+  cp_async_wait<0>();
+  // the pixel groups' sums, tap by tap, added in group order
+  auto reduce_tap = [&](int t, float2 v) {
+    if (active) {
+      red[grp * g.ec + el] = v.x;
+      red[grp * g.ec + el + 1] = v.y;
+    }
+    __syncthreads();
+    if (threadIdx.x < g.ec) {
+      float s = 0.f;
+      for (int r = 0; r < g.groups; ++r) s += red[r * g.ec + threadIdx.x];
+      const int e = e0 + threadIdx.x;
+      if (e < g.E) {
+        if (splits == 1)
+          dwd[size_t(t) * g.E + e] = Elem<T>::from_f(s);
+        else
+          part[(size_t(split) * kk + t) * g.E + e] = s;
+      }
+    }
+    __syncthreads();
+  };
+  if constexpr (K > 0) {
+#pragma unroll
+    for (int t = 0; t < K * K; ++t) reduce_tap(t, acc[t]);
+  } else {
+    for (int t = 0; t < kk; ++t)
+      reduce_tap(t, accs[t * kThreads + threadIdx.x]);
+  }
+}
+
+// The kernels by name (dtype in the name, as the file's others): each
+// is its template body.
+template <int K>
+__global__ void __launch_bounds__(kThreads, 2)
+dw_stencil_bf16_kernel(const bf16* a, const bf16* wd, bf16* out, DwGeom g,
+                       int vec, int pairs) {
+  dw_stencil_body<bf16, K>(a, wd, out, g, vec, pairs);
+}
+
+template <int K>
+__global__ void __launch_bounds__(kThreads, 2)
+dw_stencil_f32_kernel(const float* a, const float* wd, float* out, DwGeom g,
+                      int vec, int pairs) {
+  dw_stencil_body<float, K>(a, wd, out, g, vec, pairs);
+}
+
+template <int K>
+__global__ void __launch_bounds__(kThreads, 2)
+dw_dgrad_bf16_kernel(const bf16* gr, const bf16* wd, bf16* da, DwGeom g,
+                     int vec, int pairs) {
+  dw_dgrad_body<bf16, K>(gr, wd, da, g, vec, pairs);
+}
+
+template <int K>
+__global__ void __launch_bounds__(kThreads, 2)
+dw_dgrad_f32_kernel(const float* gr, const float* wd, float* da, DwGeom g,
+                    int vec, int pairs) {
+  dw_dgrad_body<float, K>(gr, wd, da, g, vec, pairs);
+}
+
+template <int K>
+__global__ void __launch_bounds__(kThreads, 2)
+dw_wgrad_bf16_kernel(const bf16* a, const bf16* gr, bf16* dwd, float* part,
+                     DwGeom g, int splits, int vec) {
+  dw_wgrad_body<bf16, K>(a, gr, dwd, part, g, splits, vec);
+}
+
+template <int K>
+__global__ void __launch_bounds__(kThreads, 2)
+dw_wgrad_f32_kernel(const float* a, const float* gr, float* dwd, float* part,
+                    DwGeom g, int splits, int vec) {
+  dw_wgrad_body<float, K>(a, gr, dwd, part, g, splits, vec);
+}
+
+// dw[i] = round(part[0][i] + part[1][i] + ... + part[splits-1][i]), in
+// that order
+template <typename T>
+__global__ void __launch_bounds__(kSumThreads)
+dw_wgrad_sum_kernel(const float* __restrict__ part, T* __restrict__ dwd,
+                    int n, int splits) {
+  for (int i = blockIdx.x * kSumThreads + threadIdx.x; i < n;
+       i += gridDim.x * kSumThreads) {
+    float s = part[i];
+    for (int k = 1; k < splits; ++k) s += part[size_t(k) * n + i];
+    dwd[i] = Elem<T>::from_f(s);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -993,6 +1489,124 @@ int launch_main(const void* x, const void* w1, const void* wd,
   return int(cudaGetLastError());
 }
 
+// The dw kernels' geometry for the planned tile (th, tw) and chunk ec.
+// Returns false for a shape or plan they do not take.
+bool make_dw_geom(DwGeom& g, int B, int T, int H, int W, int E, int k,
+                  int s, int th, int tw, int ec, int kind) {
+  if (B < 1 || T < 1 || H < 1 || W < 1 || E < 1 || k < 1 || s < 1 ||
+      ec < 16 || ec > kMaxDwChunk || ec % 16 != 0)
+    return false;
+  g.B = B; g.T = T; g.H = H; g.W = W; g.E = E;
+  g.k = k; g.s = s; g.p = k / 2;
+  g.To = (T + 2 * g.p - 1) / s + 1;
+  g.Ho = (H + 2 * g.p - k) / s + 1;
+  g.Wo = (W + 2 * g.p - k) / s + 1;
+  if (g.Ho < 1 || g.Wo < 1) return false;
+  const int fh = kind == kDgrad ? H : g.Ho, fw = kind == kDgrad ? W : g.Wo;
+  if (th < 1 || tw < 1 || th > fh || tw > fw) return false;
+  g.th = th; g.tw = tw;
+  g.ec = ec;
+  g.n_chunks = (E + ec - 1) / ec;
+  g.tpp = ec / 2;
+  g.groups = kThreads / g.tpp;
+  g.rows = dw_span(th, k, s, kind);
+  g.cols = dw_span(tw, k, s, kind);
+  g.n_tw = (fw + tw - 1) / tw;
+  g.n_tiles = ((fh + th - 1) / th) * g.n_tw;
+  g.to_first = (g.p + s - 1) / s;
+  int last = (T - 1 + g.p) / s;
+  if (last > g.To - 1) last = g.To - 1;
+  g.n_valid = last >= g.to_first ? last - g.to_first + 1 : 0;
+  return true;
+}
+
+template <typename T>
+using DwPass = void (*)(const T*, const T*, T*, DwGeom, int, int);
+template <typename T>
+using DwWgrad = void (*)(const T*, const T*, T*, float*, DwGeom, int, int);
+
+// the kernel of a pass for k (3 and 5 unrolled, any other k generic)
+DwPass<bf16> dw_pass_kernel(const bf16*, int kind, int k) {
+  if (kind == kStencil)
+    return k == 3 ? dw_stencil_bf16_kernel<3>
+         : k == 5 ? dw_stencil_bf16_kernel<5> : dw_stencil_bf16_kernel<0>;
+  return k == 3 ? dw_dgrad_bf16_kernel<3>
+       : k == 5 ? dw_dgrad_bf16_kernel<5> : dw_dgrad_bf16_kernel<0>;
+}
+
+DwPass<float> dw_pass_kernel(const float*, int kind, int k) {
+  if (kind == kStencil)
+    return k == 3 ? dw_stencil_f32_kernel<3>
+         : k == 5 ? dw_stencil_f32_kernel<5> : dw_stencil_f32_kernel<0>;
+  return k == 3 ? dw_dgrad_f32_kernel<3>
+       : k == 5 ? dw_dgrad_f32_kernel<5> : dw_dgrad_f32_kernel<0>;
+}
+
+DwWgrad<bf16> dw_wgrad_kernel(const bf16*, int k) {
+  return k == 3 ? dw_wgrad_bf16_kernel<3>
+       : k == 5 ? dw_wgrad_bf16_kernel<5> : dw_wgrad_bf16_kernel<0>;
+}
+
+DwWgrad<float> dw_wgrad_kernel(const float*, int k) {
+  return k == 3 ? dw_wgrad_f32_kernel<3>
+       : k == 5 ? dw_wgrad_f32_kernel<5> : dw_wgrad_f32_kernel<0>;
+}
+
+bool aligned_to(const void* p, size_t n) {
+  return reinterpret_cast<uintptr_t>(p) % n == 0;
+}
+
+// The stencil (in = a, out = d) or dgrad (in = g, out = da) pass.
+template <typename T>
+int launch_dw_pass(int kind, const void* in, const void* wd, void* out,
+                   const DwGeom& g, cudaStream_t stream) {
+  const DwLayout l = make_dw_layout(g, kind, sizeof(T));
+  const long long frames = (long long)g.B * (kind == kDgrad ? g.T : g.To);
+  const long long blocks = frames * g.n_tiles * g.n_chunks;
+  if (l.total > kMaxSmem || blocks > 2147483647LL)
+    return int(cudaErrorInvalidValue);
+  const DwPass<T> kern = dw_pass_kernel(static_cast<const T*>(nullptr), kind,
+                                        g.k);
+  cudaError_t err = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(kern),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(l.total));
+  if (err != cudaSuccess) return int(err);
+  const int vec = (g.E * sizeof(T)) % 16 == 0 && aligned16(in);
+  const int pairs = g.E % 2 == 0 && aligned_to(out, 2 * sizeof(T));
+  kern<<<(unsigned)blocks, kThreads, l.total, stream>>>(
+      static_cast<const T*>(in), static_cast<const T*>(wd),
+      static_cast<T*>(out), g, vec, pairs);
+  return int(cudaGetLastError());
+}
+
+template <typename T>
+int launch_dw_wgrad(const void* a, const void* gr, void* dwd, void* part,
+                    const DwGeom& g, int splits, cudaStream_t stream) {
+  const DwLayout l = make_dw_layout(g, kWgrad, sizeof(T));
+  const long long items = (long long)g.B * g.n_valid * g.n_tiles;
+  const long long blocks = (long long)g.n_chunks * splits;
+  if (l.total > kMaxSmem || splits < 1 || splits > (items > 1 ? items : 1) ||
+      (splits > 1 && part == nullptr) || blocks > 2147483647LL)
+    return int(cudaErrorInvalidValue);
+  const DwWgrad<T> kern = dw_wgrad_kernel(static_cast<const T*>(nullptr),
+                                          g.k);
+  cudaError_t err = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(kern),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(l.total));
+  if (err != cudaSuccess) return int(err);
+  const int vec = (g.E * sizeof(T)) % 16 == 0 && aligned16(a) &&
+                  aligned16(gr);
+  kern<<<(unsigned)blocks, kThreads, l.total, stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(gr),
+      static_cast<T*>(dwd), static_cast<float*>(part), g, splits, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return int(err);
+  const int n = g.k * g.k * g.E;
+  dw_wgrad_sum_kernel<T><<<sum_blocks(n), kSumThreads, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<T*>(dwd), n, splits);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C interface (loaded with ctypes). dtype: 0 = float32, 1 = bfloat16.
@@ -1026,4 +1640,50 @@ extern "C" int fb_main(const void* x, const void* w1, const void* wd,
   return launch_main(x, w1, wd, w2, static_cast<const float*>(scale), out,
                      workspace, g, dtype, splits,
                      static_cast<cudaStream_t>(stream));
+}
+
+// The depthwise stencil's backward. a, da (B,T,H,W,E); d, g (B,T',H',W',E);
+// wd, dw (k*k,E); B, T, H, W are the input's in all three. th, tw: the
+// plan's tile (output pixels for stencil and wgrad, input pixels for
+// dgrad); ec: its channel chunk (a multiple of 16, at most 64); splits
+// (wgrad): ordered ranges of the (sample, valid frame, tile) items, with
+// workspace holding splits*k*k*E floats when splits > 1.
+extern "C" int fb_dw_stencil(const void* a, const void* wd, void* out,
+                             int dtype, int B, int T, int H, int W, int E,
+                             int k, int s, int th, int tw, int ec,
+                             void* stream) {
+  DwGeom g;
+  if ((dtype != 0 && dtype != 1) ||
+      !make_dw_geom(g, B, T, H, W, E, k, s, th, tw, ec, kStencil))
+    return int(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dtype ? launch_dw_pass<bf16>(kStencil, a, wd, out, g, st)
+               : launch_dw_pass<float>(kStencil, a, wd, out, g, st);
+}
+
+extern "C" int fb_dw_dgrad(const void* gr, const void* wd, void* da,
+                           int dtype, int B, int T, int H, int W, int E,
+                           int k, int s, int th, int tw, int ec,
+                           void* stream) {
+  DwGeom g;
+  if ((dtype != 0 && dtype != 1) ||
+      !make_dw_geom(g, B, T, H, W, E, k, s, th, tw, ec, kDgrad))
+    return int(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dtype ? launch_dw_pass<bf16>(kDgrad, gr, wd, da, g, st)
+               : launch_dw_pass<float>(kDgrad, gr, wd, da, g, st);
+}
+
+extern "C" int fb_dw_wgrad(const void* a, const void* gr, void* dwd,
+                           int dtype, int B, int T, int H, int W, int E,
+                           int k, int s, int th, int tw, int ec, int splits,
+                           void* workspace, void* stream) {
+  DwGeom g;
+  if ((dtype != 0 && dtype != 1) ||
+      !make_dw_geom(g, B, T, H, W, E, k, s, th, tw, ec, kWgrad))
+    return int(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dtype ? launch_dw_wgrad<bf16>(a, gr, dwd, workspace, g, splits, st)
+               : launch_dw_wgrad<float>(a, gr, dwd, workspace, g, splits,
+                                        st);
 }

@@ -14,7 +14,8 @@ replace, their bound on the H100 and the E-chunk design):
 
 On a CPU tensor each wrapper computes its plain PyTorch version instead; on
 a CUDA tensor it launches its kernel or raises. ``LAUNCHES`` counts kernel
-launches per pass (a split's sum kernel is part of its pass). The two
+launches per pass (a split's sum kernel is part of its pass), the
+backward's ``dw_stencil``, ``dw_dgrad`` and ``dw_wgrad`` among them. The two
 passes are also the custom ops ``picklebot::fused_pool`` and
 ``picklebot::fused_main`` (``ops/library.py``), through which a traced
 call (``torch.export``) goes, so that an exported program keeps them.
@@ -29,10 +30,16 @@ plain versions of that order and of the bf16 kernels' numerics.
 
 Under autograd (grad enabled and an input that requires grad)
 ``fused_bottleneck`` runs ``FusedBottleneckFn``: the same forward, and a
-backward that recomputes the plain chain and differentiates it, as the JAX
+backward that recomputes the chain and differentiates it, as the JAX
 package's ``custom_vjp`` does (``_fb_bwd``, an XLA recompute, not a
-kernel). The backward launches no kernel. ``fused_pool`` and
-``fused_main`` alone have no backward and raise under autograd. In a
+kernel). On a CUDA tensor the recompute's depthwise conv runs on three
+more kernels of the same source, ``DepthwiseStencilFn``: the stencil
+(``dw_stencil``), its input gradient (``dw_dgrad``) and its weight
+gradient (``dw_wgrad``, ranges summed in order as the pool pass's split
+is; ``dw_wgrad_reference`` is the plain version of that order), planned by
+``_dw_plan``; the expand and projection matmuls, the SE MLP and their
+gradients stay torch. ``fused_pool`` and ``fused_main`` alone have no
+backward and raise under autograd. In a
 torch profiler's trace the forward (both passes and the SE MLP) and the
 backward (the recompute and its gradient) are the spans
 ``picklebot.fused_bottleneck.forward`` and ``.backward``
@@ -55,13 +62,15 @@ import functools
 from collections import namedtuple
 
 import torch
+import torch.nn.functional as F
 
 from picklebot_tpu_torch.ops import library
 from picklebot_tpu_torch.ops.activations import hardsigmoid, relu
 from picklebot_tpu_torch.ops.conv import depthwise_conv, pointwise_conv
 from picklebot_tpu_torch.utils.profiling import span
 
-LAUNCHES = {"pool": 0, "main": 0}
+LAUNCHES = {"pool": 0, "main": 0, "dw_stencil": 0, "dw_dgrad": 0,
+            "dw_wgrad": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FNS = {}
@@ -237,12 +246,101 @@ def _main_plan(shape, kernel_size: int, stride: int, e: int, co: int,
                 splits * b * to * ho * wo * co if splits > 1 else 0)
 
 
+_DW_CHUNK = 64                   # the dw kernels' widest channel chunk
+_DW_SMEM = 48 * 1024             # a dw tile's shared memory: 4 blocks an SM
+_DW_BLOCKS = 4 * _SMS            # the wgrad grid's aim
+_DW_KINDS = ("stencil", "dgrad", "wgrad")
+
+
+def _dw_chunk(e: int) -> int:
+    """Channels per block: E cut into as few chunks of at most 64 as it
+    takes, each rounded up to a multiple of 16 (the pair-per-thread
+    mapping's and the 16-byte loads' unit), so that little is idle."""
+    return _r16(-(-e // -(-e // _DW_CHUNK)))
+
+
+def _dw_span(n: int, k: int, s: int, dgrad: bool) -> int:
+    """Rows of the staged tile for a tile of ``n`` pixels along one axis
+    (``dw_span`` in the C source)."""
+    if not dgrad:
+        return (n - 1) * s + k
+    return n + k - 1 if s == 1 else (n + k - 2) // s + 2
+
+
+def _dw_smem(kind, th, tw, ec, k, s, elem) -> int:
+    """Bytes of a dw kernel's shared memory (``make_dw_layout``)."""
+    a16 = lambda n: -(-n // 16) * 16                       # noqa: E731
+    dgrad = kind == "dgrad"
+    tile = a16(_dw_span(th, k, s, dgrad) * _dw_span(tw, k, s, dgrad) * ec
+               * elem)
+    if kind != "wgrad":
+        return tile
+    acc = 0 if k in (3, 5) else a16(k * k * 256 * 8)
+    return (2 * tile + a16(2 * th * tw * ec * elem)
+            + a16(256 // (ec // 2) * ec * 4) + acc)
+
+
+@functools.lru_cache(maxsize=1024)
+def _dw_plan(shape, kernel_size: int, stride: int, dtype, kind: str) -> Plan:
+    """The launch of one of the stencil's backward kernels for the
+    expanded tensor a of ``shape`` (B, T, H, W, E): the channel chunk
+    (``_dw_chunk``), then a tile of ``_TILE_PIX`` (output pixels for
+    ``stencil`` and ``wgrad``, input pixels for ``dgrad``) among those
+    whose shared memory lets four blocks share an SM (else among those
+    that fit one): the largest that gives every SM two blocks, else the
+    one with most blocks. stencil and dgrad take one block per (chunk,
+    frame, tile); wgrad one per (chunk, range), its (sample, valid output
+    frame, tile) items cut into as many contiguous ranges as bring the
+    grid to ``_DW_BLOCKS`` (at most one range per item). ``workspace``
+    counts wgrad's f32 partials (splits, k*k, E), 0 unsplit."""
+    if kind not in _DW_KINDS:
+        raise ValueError(f"dw plan: kind {kind!r} (one of {_DW_KINDS})")
+    b, t, h, w, e = shape
+    k, s = kernel_size, stride
+    to, ho, wo = out_shape(t, h, w, k, s)
+    if ho < 1 or wo < 1:
+        raise ValueError(f"depthwise stencil: no output pixel for "
+                         f"{tuple(shape)} at k {k}, s {s}")
+    fh, fw = (h, w) if kind == "dgrad" else (ho, wo)
+    ec = _dw_chunk(e)
+    chunks = -(-e // ec)
+    elem = 2 if dtype == torch.bfloat16 else 4
+
+    def grid(th, tw):
+        """(splits, blocks) of the tile (th, tw)."""
+        tiles = -(-fh // th) * -(-fw // tw)
+        if kind != "wgrad":
+            return 1, chunks * b * (t if kind == "dgrad" else to) * tiles
+        items = b * valid_frames(t, k, s)[1] * tiles
+        splits = max(1, min(items, -(-_DW_BLOCKS // chunks)))
+        return splits, chunks * splits
+
+    fits = []                       # (th, tw, smem), largest first
+    for pix in _TILE_PIX:
+        th, tw = _even_tile(fh, fw, pix)
+        smem = _dw_smem(kind, th, tw, ec, k, s, elem)
+        if smem <= _SMEM_BLOCK:
+            fits.append((th, tw, smem))
+    if not fits:
+        raise ValueError(f"depthwise stencil {kind}: no tile fits shared "
+                         f"memory for {tuple(shape)} at k {k}, s {s}")
+    four = [f for f in fits if f[2] <= _DW_SMEM] or fits
+    # the largest tile that gives every SM two blocks, else the most blocks
+    th, tw, smem = next((f for f in four if grid(*f[:2])[1] >= 2 * _SMS),
+                        max(four, key=lambda f: grid(*f[:2])[1]))
+    splits, blocks = grid(th, tw)
+    workspace = splits * k * k * e if splits > 1 else 0
+    if blocks > _GRID_MAX:
+        raise ValueError(f"depthwise stencil {kind}: {blocks} blocks")
+    return Plan(th, tw, ec, splits, blocks, smem, workspace)
+
+
 # --------------------------------------------------------------------------
 # plain versions
 # --------------------------------------------------------------------------
 
-def _expand_depthwise(x, w1, wd, stride):
-    return depthwise_conv(pointwise_conv(x, w1), wd, stride)
+def _expand_depthwise(x, w1, wd, stride, depthwise=depthwise_conv):
+    return depthwise(pointwise_conv(x, w1), wd, stride)
 
 
 def pool_reference(x, w1, wd, kernel_size: int, stride: int):
@@ -271,8 +369,16 @@ def fused_bottleneck_reference(x, w1, wd, w2, se_w1, se_b1, se_w2, se_b2,
                                kernel_size: int, stride: int, use_se: bool):
     """Plain version of the whole chain, in x's dtype (mirrors
     ``_unfused_reference``)."""
+    return _chain(depthwise_conv, x, w1, wd, w2, se_w1, se_b1, se_w2, se_b2,
+                  kernel_size, stride, use_se)
+
+
+def _chain(depthwise, x, w1, wd, w2, se_w1, se_b1, se_w2, se_b2,
+           kernel_size: int, stride: int, use_se: bool):
+    """The chain with ``depthwise`` as its depthwise conv: the plain one,
+    or the backward recompute's ``depthwise_stencil``."""
     assert wd.shape[0] == kernel_size
-    d = _expand_depthwise(x, w1, wd, stride)
+    d = _expand_depthwise(x, w1, wd, stride, depthwise)
     if use_se:
         mean = d.float().mean(dim=(1, 2, 3))
         d = d * se_scale(mean, se_w1, se_b1, se_w2, se_b2,
@@ -334,6 +440,99 @@ def main_split_reference(x, w1, wd, w2, scale, kernel_size: int,
     return total.to(x.dtype)
 
 
+def _dw_frames(t: int, kernel_size: int, stride: int):
+    """(first valid output frame, their count, the input frame of the
+    first): valid output frame first + v reads input frame i0 + v*s."""
+    first, n = valid_frames(t, kernel_size, stride)
+    return first, n, first * stride - kernel_size // 2
+
+
+def _dw_taps(padded, k: int, s: int, ho: int, wo: int):
+    """(dy, dx, view): for each tap the (B, V, H', W', E) view of the
+    spatially padded input that the tap reads at every output pixel."""
+    for dy in range(k):
+        for dx in range(k):
+            yield dy, dx, padded[:, :, dy:dy + s * (ho - 1) + 1:s,
+                                 dx:dx + s * (wo - 1) + 1:s]
+
+
+def dw_stencil_reference(a, wd, stride: int):
+    """Plain version of the stencil kernel: Bottleneck3D's depthwise conv
+    of a (B, T, H, W, E) by wd (k, k, E) as a sum of the k*k taps in f32,
+    rounded once to a's dtype; zero frames written as zeros."""
+    b, t, h, w, e = a.shape
+    k, s, p = wd.shape[0], stride, wd.shape[0] // 2
+    to, ho, wo = out_shape(t, h, w, k, s)
+    first, n, i0 = _dw_frames(t, k, s)
+    out = a.new_zeros((b, to, ho, wo, e))
+    if n:
+        padded = F.pad(a[:, i0:i0 + s * (n - 1) + 1:s].float(),
+                       (0, 0, p, p, p, p))
+        wf = wd.float()
+        d = sum(view * wf[dy, dx] for dy, dx, view in
+                _dw_taps(padded, k, s, ho, wo))
+        out[:, first:first + n] = d.to(a.dtype)
+    return out
+
+
+def dw_dgrad_reference(g, wd, stride: int, shape):
+    """Plain version of the dgrad kernel: the gradient of the stencil's
+    input of ``shape`` (B, T, H, W, E) from g (B, T', H', W', E), each
+    tap's product added in f32 into a padded buffer, rounded once to g's
+    dtype; input frames that no output frame reads are zeros."""
+    b, t, h, w, e = shape
+    k, s, p = wd.shape[0], stride, wd.shape[0] // 2
+    _, ho, wo = out_shape(t, h, w, k, s)
+    first, n, i0 = _dw_frames(t, k, s)
+    da = g.new_zeros((b, t, h, w, e))
+    if n:
+        gf, wf = g[:, first:first + n].float(), wd.float()
+        padded = gf.new_zeros((b, n, h + 2 * p, w + 2 * p, e))
+        for dy, dx, view in _dw_taps(padded, k, s, ho, wo):
+            view += gf * wf[dy, dx]
+        da[:, i0:i0 + s * (n - 1) + 1:s] = padded[:, :, p:p + h,
+                                                  p:p + w].to(g.dtype)
+    return da
+
+
+def dw_wgrad_reference(a, g, kernel_size: int, stride: int,
+                       plan: Plan = None):
+    """Plain version of the wgrad kernels' order: for each tap, g times
+    the input it read, summed in f32 per range of the (sample, valid
+    output frame, output tile) items as ``plan`` (default ``_dw_plan``)
+    cuts them, the ranges' sums then added in range order and rounded
+    once to a's dtype. (k, k, E)."""
+    b, t, h, w, e = a.shape
+    k, s, p = kernel_size, stride, kernel_size // 2
+    plan = plan or _dw_plan(tuple(a.shape), k, s, a.dtype, "wgrad")
+    _, ho, wo = out_shape(t, h, w, k, s)
+    first, n, i0 = _dw_frames(t, k, s)
+    total = torch.zeros((k, k, e), dtype=torch.float32, device=a.device)
+    if not n:
+        return total.to(a.dtype)
+    padded = F.pad(a[:, i0:i0 + s * (n - 1) + 1:s].float(),
+                   (0, 0, p, p, p, p))
+    gf = g[:, first:first + n].float()
+    n_tw = -(-wo // plan.tw)
+    tiles = -(-ho // plan.th) * n_tw
+    tile = ((torch.arange(ho) // plan.th)[:, None] * n_tw
+            + (torch.arange(wo) // plan.tw)[None, :])
+    item = ((torch.arange(b)[:, None] * n + torch.arange(n)[None, :])
+            [..., None, None] * tiles + tile)
+    items = b * n * tiles
+    bounds = torch.tensor([items * i // plan.splits
+                           for i in range(1, plan.splits)], dtype=torch.long)
+    split = torch.bucketize(item, bounds, right=True).to(a.device)
+    parts = total.new_zeros((plan.splits, k, k, e))
+    for dy, dx, view in _dw_taps(padded, k, s, ho, wo):
+        part = total.new_zeros((plan.splits, e))
+        part.index_add_(0, split.reshape(-1), (gf * view).reshape(-1, e))
+        parts[:, dy, dx] = part
+    for part in parts:
+        total = total + part
+    return total.to(a.dtype)
+
+
 # --------------------------------------------------------------------------
 # kernels
 # --------------------------------------------------------------------------
@@ -345,8 +544,15 @@ def _fn(name):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.fb_pool.argtypes = [p, p, p, p] + [i] * 12 + [p, p]
         lib.fb_main.argtypes = [p, p, p, p, p, p] + [i] * 13 + [p, p]
-        lib.fb_pool.restype = lib.fb_main.restype = i
-        _FNS.update(pool=lib.fb_pool, main=lib.fb_main)
+        lib.fb_dw_stencil.argtypes = [p, p, p] + [i] * 11 + [p]
+        lib.fb_dw_dgrad.argtypes = [p, p, p] + [i] * 11 + [p]
+        lib.fb_dw_wgrad.argtypes = [p, p, p] + [i] * 12 + [p, p]
+        for f in (lib.fb_pool, lib.fb_main, lib.fb_dw_stencil,
+                  lib.fb_dw_dgrad, lib.fb_dw_wgrad):
+            f.restype = i
+        _FNS.update(pool=lib.fb_pool, main=lib.fb_main,
+                    dw_stencil=lib.fb_dw_stencil, dw_dgrad=lib.fb_dw_dgrad,
+                    dw_wgrad=lib.fb_dw_wgrad)
     return _FNS[name]
 
 
@@ -454,6 +660,162 @@ def _launch_main(x, w1, wd, w2, scale, kernel_size: int, stride: int):
     return out
 
 
+def _check_dw(what, tensors, shapes):
+    """The dw kernels' inputs: the given shapes, one dtype of ``_DTYPES``
+    and one device, contiguous, on CUDA."""
+    first = tensors[0]
+    for t, shape in zip(tensors, shapes):
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"depthwise stencil {what}: a tensor of shape "
+                             f"{tuple(t.shape)} where {tuple(shape)} was "
+                             "wanted")
+        if t.dtype != first.dtype or t.device != first.device:
+            raise ValueError(f"depthwise stencil {what}: tensors of "
+                             f"{t.dtype} on {t.device} and {first.dtype} on "
+                             f"{first.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"depthwise stencil {what}: inputs must be "
+                             "contiguous")
+    if first.dtype not in _DTYPES:
+        raise TypeError(f"depthwise stencil {what} kernel: dtype "
+                        f"{first.dtype} (float32 or bfloat16 only)")
+    if first.device.type != "cuda":
+        raise ValueError(f"depthwise stencil {what} kernel: input is on "
+                         f"{first.device}; the kernel runs on CUDA tensors "
+                         "only")
+
+
+def _dw_args(shape, kernel_size, stride, plan):
+    b, t, h, w, e = shape
+    return (b, t, h, w, e, kernel_size, stride, plan.th, plan.tw, plan.chunk)
+
+
+def _launch_dw_stencil(a, wd, stride: int):
+    """The stencil kernel on CUDA tensors: Bottleneck3D's depthwise conv
+    of a (B, T, H, W, E) by wd (k, k, E)."""
+    if a.dim() != 5 or wd.dim() != 3:
+        raise ValueError(f"depthwise stencil: a (B, T, H, W, E) and wd "
+                         f"(k, k, E), got {tuple(a.shape)} and "
+                         f"{tuple(wd.shape)}")
+    k, e = wd.shape[0], a.shape[-1]
+    _check_dw("stencil", (a, wd), (a.shape, (k, k, e)))
+    b, t, h, w, _ = a.shape
+    plan = _dw_plan(tuple(a.shape), k, stride, a.dtype, "stencil")
+    out = torch.empty((b, *out_shape(t, h, w, k, stride), e),
+                      device=a.device, dtype=a.dtype)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _fn("dw_stencil")(a.data_ptr(), wd.data_ptr(), out.data_ptr(),
+                                _DTYPES[a.dtype],
+                                *_dw_args(a.shape, k, stride, plan), stream)
+    _raise_on(err, "depthwise stencil")
+    LAUNCHES["dw_stencil"] += 1
+    return out
+
+
+def _launch_dw_dgrad(g, wd, stride: int, shape):
+    """The dgrad kernel on CUDA tensors: the gradient of the stencil's
+    input of ``shape`` (B, T, H, W, E) from g (B, T', H', W', E)."""
+    shape = tuple(shape)
+    if len(shape) != 5 or wd.dim() != 3:
+        raise ValueError(f"depthwise stencil dgrad: shape (B, T, H, W, E) "
+                         f"and wd (k, k, E), got {shape} and "
+                         f"{tuple(wd.shape)}")
+    k, (b, t, h, w, e) = wd.shape[0], shape
+    _check_dw("dgrad", (g, wd),
+              ((b, *out_shape(t, h, w, k, stride), e), (k, k, e)))
+    plan = _dw_plan(shape, k, stride, g.dtype, "dgrad")
+    da = torch.empty(shape, device=g.device, dtype=g.dtype)
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _fn("dw_dgrad")(g.data_ptr(), wd.data_ptr(), da.data_ptr(),
+                              _DTYPES[g.dtype],
+                              *_dw_args(shape, k, stride, plan), stream)
+    _raise_on(err, "depthwise stencil dgrad")
+    LAUNCHES["dw_dgrad"] += 1
+    return da
+
+
+def _launch_dw_wgrad(a, g, kernel_size: int, stride: int):
+    """The wgrad kernels on CUDA tensors: the stencil's weight gradient
+    (k, k, E) from its input a and the output gradient g."""
+    if a.dim() != 5:
+        raise ValueError(f"depthwise stencil wgrad: a must be (B, T, H, W,"
+                         f" E), got {tuple(a.shape)}")
+    b, t, h, w, e = a.shape
+    k = kernel_size
+    _check_dw("wgrad", (a, g),
+              (a.shape, (b, *out_shape(t, h, w, k, stride), e)))
+    plan = _dw_plan(tuple(a.shape), k, stride, a.dtype, "wgrad")
+    dwd = torch.empty((k, k, e), device=a.device, dtype=a.dtype)
+    part = _workspace(plan, a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _fn("dw_wgrad")(a.data_ptr(), g.data_ptr(), dwd.data_ptr(),
+                              _DTYPES[a.dtype],
+                              *_dw_args(a.shape, k, stride, plan),
+                              plan.splits, _ptr(part), stream)
+    _raise_on(err, "depthwise stencil wgrad")
+    LAUNCHES["dw_wgrad"] += 1
+    return dwd
+
+
+def dw_stencil(a, wd, stride: int):
+    """The stencil's forward: its kernel on a CUDA tensor, its plain
+    version on a CPU one. No backward of its own (``depthwise_stencil``
+    has it)."""
+    if a.device.type == "cpu":
+        return dw_stencil_reference(a, wd, stride)
+    return _launch_dw_stencil(a, wd, stride)
+
+
+def dw_dgrad(g, wd, stride: int, shape):
+    """The stencil's input gradient, of ``shape``."""
+    if g.device.type == "cpu":
+        return dw_dgrad_reference(g, wd, stride, shape)
+    return _launch_dw_dgrad(g, wd, stride, shape)
+
+
+def dw_wgrad(a, g, kernel_size: int, stride: int):
+    """The stencil's weight gradient (k, k, E)."""
+    if a.device.type == "cpu":
+        return dw_wgrad_reference(a, g, kernel_size, stride)
+    return _launch_dw_wgrad(a, g, kernel_size, stride)
+
+
+class DepthwiseStencilFn(torch.autograd.Function):
+    """Bottleneck3D's depthwise conv of a channels-last a (B, T, H, W, E)
+    by wd (k, k, E) under autograd: forward ``dw_stencil``, backward
+    ``dw_dgrad`` and ``dw_wgrad`` (the kernels on the card)."""
+
+    @staticmethod
+    def forward(ctx, a, wd, stride):
+        ctx.save_for_backward(a, wd)
+        ctx.stride = stride
+        return dw_stencil(a, wd, stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, wd = ctx.saved_tensors
+        g = g.contiguous()
+        da = dwd = None
+        if ctx.needs_input_grad[0]:
+            da = dw_dgrad(g, wd, ctx.stride, a.shape)
+        if ctx.needs_input_grad[1]:
+            dwd = dw_wgrad(a, g, wd.shape[0], ctx.stride)
+        return da, dwd, None
+
+
+def depthwise_stencil(a, wd, stride: int):
+    """``depthwise_conv``'s function on the stencil's kernels, under
+    autograd through ``DepthwiseStencilFn``: the backward recompute's
+    depthwise conv on the card."""
+    a, wd = a.contiguous(), wd.to(a.dtype).contiguous()
+    if _needs_graph(a, wd):
+        return DepthwiseStencilFn.apply(a, wd, stride)
+    return dw_stencil(a, wd, stride)
+
+
 @torch.library.custom_op(f"{library.NAMESPACE}::fused_pool", mutates_args=(),
                          device_types="cuda")
 def _pool_op(x: torch.Tensor, w1: torch.Tensor, wd: torch.Tensor,
@@ -532,10 +894,13 @@ def _fused_forward(x, w1, wd, w2, se_w1, se_b1, se_w2, se_b2,
 
 class FusedBottleneckFn(torch.autograd.Function):
     """The fused chain under autograd: the forward of ``fused_bottleneck``
-    (the kernels on the card), the backward a recompute through
-    ``fused_bottleneck_reference`` differentiated by autograd. The weights
-    are the outputs of ``Bottleneck3D.kernel_weights``, so their gradients
-    flow on through its transposes and casts to the f32 parameters."""
+    (the kernels on the card), the backward a recompute of the chain
+    differentiated by autograd: on a CUDA tensor with its depthwise conv on
+    the stencil's kernels (``depthwise_stencil``), the rest matmuls and
+    elementwise torch; on a CPU tensor ``fused_bottleneck_reference``. The
+    weights are the outputs of ``Bottleneck3D.kernel_weights``, so their
+    gradients flow on through its transposes and casts to the f32
+    parameters."""
 
     @staticmethod
     def forward(ctx, x, w1, wd, w2, se_w1, se_b1, se_w2, se_b2,
@@ -552,8 +917,10 @@ class FusedBottleneckFn(torch.autograd.Function):
                       t.detach().requires_grad_(need)
                       for t, need in zip(ctx.saved_tensors,
                                          ctx.needs_input_grad)]
+            depthwise = (depthwise_conv if inputs[0].device.type == "cpu"
+                         else depthwise_stencil)
             with torch.enable_grad():
-                out = fused_bottleneck_reference(*inputs, *ctx.static)
+                out = _chain(depthwise, *inputs, *ctx.static)
             wrt = [t for t in inputs if t is not None and t.requires_grad]
             grads = iter(torch.autograd.grad(out, wrt, g, allow_unused=True))
             return (*(next(grads) if t is not None and t.requires_grad

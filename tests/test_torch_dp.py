@@ -480,10 +480,11 @@ def test_sharded_predict_matches_jax_and_the_unsharded_predictor():
         flatten_dict(v["params"]), flatten_dict(v["state"]),
         "MobileNetLarge3D"))
     feats = rng.randint(0, 256, (5, 8, 32, 32, 3)).astype(np.uint8)
-    fb.LAUNCHES.update(pool=0, main=0)
+    fb.LAUNCHES.update(dict.fromkeys(fb.LAUNCHES, 0))
     got = make_sharded_predict_fn(port, ["cpu", "cpu"], TorchPolicy.f32())(
         feats)
-    assert fb.LAUNCHES == {"pool": 0, "main": 0}   # no kernel on the CPU
+    assert fb.LAUNCHES == {"pool": 0, "main": 0, "dw_stencil": 0,
+                           "dw_dgrad": 0, "dw_wgrad": 0}   # CPU: no kernel
     assert got.shape == (5, 13)
     single = make_predict_fn(port, TorchPolicy.f32(), device="cpu")(feats)
     np.testing.assert_allclose(got, single, rtol=1e-5, atol=1e-5)

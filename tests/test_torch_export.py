@@ -252,7 +252,8 @@ def test_eager_and_op_routes_give_the_same_values(rng, monkeypatch):
                        for e in prof.events()), n
             np.testing.assert_allclose(routed.numpy(), eager[n].numpy(),
                                        rtol=0, atol=1e-5, err_msg=n)
-    assert fb.LAUNCHES == {"pool": 0, "main": 0}
+    assert fb.LAUNCHES == {"pool": 0, "main": 0, "dw_stencil": 0,
+                           "dw_dgrad": 0, "dw_wgrad": 0}
     assert fa.LAUNCHES["packed"] == fa.LAUNCHES["heads"] == 0
     assert fc.LAUNCHES["fwd"] == 0
 

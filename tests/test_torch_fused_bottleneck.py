@@ -9,7 +9,12 @@ the JAX package's own kernel-vs-module test uses. Also the kernels' plans
 (``_pool_plan``, ``_main_plan``) at every geometry of the three models
 that run them, the plain versions of the split kernels' order
 (``pool_split_reference``, ``main_split_reference``) against the Pallas
-kernel in f32 and bf16, and the bf16 plain version against it.
+kernel in f32 and bf16, and the bf16 plain version against it. Last, the
+backward's depthwise stencil kernels: their plain versions
+(``dw_stencil_reference``, ``dw_dgrad_reference``, ``dw_wgrad_reference``
+in the plan's range order) and ``DepthwiseStencilFn`` against
+``F.conv3d``'s autograd at every geometry, their zero frames, and their
+plans (``_dw_plan``).
 """
 
 import os
@@ -22,6 +27,7 @@ import torch
 
 from picklebot_tpu.ops.pallas.fused_bottleneck import fused_bottleneck
 from picklebot_tpu_torch.ops import fused_bottleneck as fb
+from picklebot_tpu_torch.ops.conv import depthwise_conv
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -308,3 +314,221 @@ def test_bf16_plain_versions_match_jax_kernel(rng, k, s, use_se, c, e):
 def _bf16_exact(v):
     return torch.from_numpy(np.ascontiguousarray(v)).to(
         torch.bfloat16).float().numpy()
+
+
+# --------------------------------------------------------------------------
+# the depthwise stencil's backward kernels (the recompute's depthwise conv
+# on the card): their plain versions and plans
+# --------------------------------------------------------------------------
+
+DW_TOL = 1e-5        # of max|ref|: f32 sums of the same products
+
+
+def _dw_shape(shape, e):
+    """A geometry's stencil input (B, T, H, W, E) cut to a CPU test's
+    size: its T (the quirk's frames), E (the chunk plan), k and s kept;
+    two samples; frames of at most 10x12 (odd sizes stay odd)."""
+    _, t, h, w, _ = shape
+    return (2, t, min(h, 9 + h % 2), min(w, 11 + w % 2), e)
+
+
+def _dw_inputs(shape, k, s, seed, dtype=torch.float32):
+    gen = torch.Generator().manual_seed(seed)
+    a = torch.randn(shape, generator=gen, dtype=torch.float64).to(dtype)
+    wd = (torch.rand((k, k, shape[-1]), generator=gen) * 2 - 1).to(dtype)
+    g = torch.randn((shape[0], *fb.out_shape(*shape[1:4], k, s), shape[-1]),
+                    generator=gen).to(dtype)
+    return a, wd, g
+
+
+def _conv3d_grads(a, wd, g, s):
+    ar, wr = a.clone().requires_grad_(), wd.clone().requires_grad_()
+    d = depthwise_conv(ar, wr, s)
+    return (d.detach(), *torch.autograd.grad(d, (ar, wr), g))
+
+
+def _rel_close(got, want, tol=DW_TOL):
+    err = (got.double() - want.double()).abs().max().item()
+    assert err <= tol * want.double().abs().max().item(), err
+
+
+@pytest.mark.parametrize("name,shape,k,s,se,e,co", GEOMETRIES,
+                         ids=[g[0] for g in GEOMETRIES])
+def test_dw_plain_versions_match_conv3d_autograd(name, shape, k, s, se, e,
+                                                 co):
+    """At each bottleneck geometry of the three models (cut to CPU size):
+    the plain versions of the stencil, its input gradient and its weight
+    gradient in the plan's range order equal F.conv3d's (groups=E) output
+    and autograd gradients, f32 within 1e-5 of max|ref|; so does the
+    autograd Function the recompute takes."""
+    shape = _dw_shape(shape, e)
+    a, wd, g = _dw_inputs(shape, k, s, seed=len(name) * 7 + k)
+    d, da, dwd = _conv3d_grads(a, wd, g, s)
+    _rel_close(fb.dw_stencil_reference(a, wd, s), d)
+    _rel_close(fb.dw_dgrad_reference(g, wd, s, shape), da)
+    plan = fb._dw_plan(shape, k, s, torch.float32, "wgrad")
+    _rel_close(fb.dw_wgrad_reference(a, g, k, s, plan), dwd)
+    before = dict(fb.LAUNCHES)
+    ar, wr = a.clone().requires_grad_(), wd.clone().requires_grad_()
+    out = fb.depthwise_stencil(ar, wr, s)
+    got = torch.autograd.grad(out, (ar, wr), g)
+    assert fb.LAUNCHES == before      # a CPU tensor launches no kernel
+    _rel_close(out.detach(), d)
+    _rel_close(got[0], da)
+    _rel_close(got[1], dwd)
+
+
+@pytest.mark.parametrize("k,s,use_se", CASES)
+def test_dw_chain_gradients_equal_the_plain_chain(rng, k, s, use_se):
+    """The recompute's chain with its depthwise conv on the stencil's
+    Function (``_chain(depthwise_stencil, ...)``, the card's path, here on
+    its plain versions) has the plain chain's gradients in every input,
+    f32 within 1e-5 of max|ref|, with and without SE."""
+    x, w = _inputs(rng, c=24, e=72, k=k, shape=(2, 5, 11, 9))
+    names = ("w1", "wd", "w2", "se_w1", "se_b1", "se_w2", "se_b2")
+    args = [torch.from_numpy(x)] + [torch.from_numpy(w[n]) for n in names]
+    g = None
+    grads = {}
+    for depthwise in (depthwise_conv, fb.depthwise_stencil):
+        ins = [t.clone().requires_grad_() for t in args]
+        out = fb._chain(depthwise, *ins, k, s, use_se)
+        if g is None:
+            g = torch.randn(out.shape, generator=torch.Generator()
+                            .manual_seed(3))
+        live = ins if use_se else ins[:4]
+        grads[depthwise] = torch.autograd.grad(out, live, g)
+    for got, want in zip(grads[fb.depthwise_stencil],
+                         grads[depthwise_conv]):
+        _rel_close(got, want)
+
+
+@pytest.mark.parametrize("k,s,t", [(3, 1, 5), (5, 1, 4), (3, 2, 7),
+                                   (5, 2, 6), (3, 2, 2)])
+def test_dw_wgrad_reference_sums_every_position_once(k, s, t):
+    """Any cut of the (sample, valid frame, tile) items into ranges, with
+    tiles that do not divide the frame, gives conv3d's weight gradient
+    (f32 1e-5): each valid output position lies in exactly one range.
+    Ones in, ones back: each tap's sum is the count of the positions
+    that read inside the frame, an integer, exact."""
+    shape = (3, t, 13, 11, 40)
+    a, wd, g = _dw_inputs(shape, k, s, seed=11)
+    want = _conv3d_grads(a, wd, g, s)[2]
+    ones_a, ones_g = torch.ones_like(a), torch.ones_like(g)
+    count = _conv3d_grads(ones_a, wd, ones_g, s)[2]
+    plan = fb._dw_plan(shape, k, s, torch.float32, "wgrad")
+    items = shape[0] * fb.valid_frames(t, k, s)[1] * 4 * 3
+    for splits in (1, 2, 7, 13, items):
+        cut = plan._replace(th=4, tw=4, splits=splits)
+        _rel_close(fb.dw_wgrad_reference(a, g, k, s, cut), want)
+        assert torch.equal(fb.dw_wgrad_reference(ones_a, ones_g, k, s, cut),
+                           count)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,s,t", [(3, 1, 4), (5, 1, 3), (3, 2, 8),
+                                   (5, 2, 7)])
+def test_dw_zero_frames_and_unread_frames_are_exact_zeros(k, s, t, dtype):
+    """The stencil's output frames whose input frame lies outside [0, T)
+    (T' = T + 2*(k//2) at stride 1) and the input gradient's frames that
+    no output frame reads (t + k//2 no multiple of s) come out exactly 0;
+    every other frame is read."""
+    shape = (2, t, 7, 9, 24)
+    a, wd, g = _dw_inputs(shape, k, s, seed=5, dtype=dtype)
+    first, n = fb.valid_frames(t, k, s)
+    d = fb.dw_stencil_reference(a, wd, s)
+    da = fb.dw_dgrad_reference(g, wd, s, shape)
+    assert d.dtype == da.dtype == dtype
+    for f in range(d.shape[1]):
+        assert bool(d[:, f].any()) == (first <= f < first + n), f
+    read = {f * s - k // 2 for f in range(first, first + n)}
+    for f in range(t):
+        assert bool(da[:, f].any()) == (f in read), f
+    if s == 2:
+        assert 0 < len(read) < t
+
+
+# the stencil's input a at every geometry of the three models, at bs 8
+# and (MobileNetLarge3D's) at the benchmark cell's bs 16
+DW_GEOMETRIES = [(name, (b, *shape[1:4], e), k, s)
+                 for name, shape, k, s, _, e, _ in GEOMETRIES
+                 for b in ((8, 16) if name.startswith("Large3D") else (8,))]
+
+
+@pytest.mark.parametrize("kind", ["stencil", "dgrad", "wgrad"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name,shape,k,s", DW_GEOMETRIES,
+                         ids=[f"{g[0]} bs{g[1][0]}" for g in DW_GEOMETRIES])
+def test_dw_plans_fill_the_card_and_fit(name, shape, k, s, dtype, kind):
+    """Each kernel's plan at each geometry: a chunk of 16..64 channels
+    with at most 15 idle, a tile inside the frame whose shared memory fits
+    one block (and lets four blocks share an SM), a one-dimensional grid
+    of at least two blocks per SM; wgrad cut into ranges for that (no more
+    ranges than items) with its workspace."""
+    b, t, h, w, e = shape
+    plan = fb._dw_plan(shape, k, s, dtype, kind)
+    to, ho, wo = fb.out_shape(t, h, w, k, s)
+    fh, fw = (h, w) if kind == "dgrad" else (ho, wo)
+    chunks = -(-e // plan.chunk)
+    assert plan.chunk % 16 == 0 and 16 <= plan.chunk <= 64
+    assert chunks * plan.chunk - e < 16 * chunks
+    assert 1 <= plan.th <= fh and 1 <= plan.tw <= fw
+    assert plan.smem <= 48 * 1024 < SMEM
+    elem = 2 if dtype == torch.bfloat16 else 4
+    assert plan.smem == fb._dw_smem(kind, plan.th, plan.tw, plan.chunk, k,
+                                    s, elem)
+    tiles = -(-fh // plan.th) * -(-fw // plan.tw)
+    assert 2 * SMS <= plan.blocks < GRID
+    if kind == "wgrad":
+        items = b * fb.valid_frames(t, k, s)[1] * tiles
+        assert plan.blocks == chunks * plan.splits
+        assert 1 <= plan.splits <= items
+        assert plan.workspace == (plan.splits * k * k * e
+                                  if plan.splits > 1 else 0)
+    else:
+        assert plan.splits == 1 and plan.workspace == 0
+        assert plan.blocks == chunks * b * (t if kind == "dgrad" else to) \
+            * tiles
+
+
+def test_dw_plans_take_any_kernel_size_and_refuse_what_they_cannot():
+    """k = 7 plans (its wgrad keeps its sums in shared memory); an
+    unknown kind, and a k whose wgrad sums no shared memory holds, are
+    refused."""
+    plan = fb._dw_plan((2, 4, 9, 9, 40), 7, 1, torch.bfloat16, "wgrad")
+    assert plan.smem == fb._dw_smem("wgrad", plan.th, plan.tw, plan.chunk,
+                                    7, 1, 2) > 7 * 7 * 256 * 8
+    with pytest.raises(ValueError, match="kind"):
+        fb._dw_plan((2, 4, 9, 9, 40), 3, 1, torch.float32, "dx")
+    with pytest.raises(ValueError, match="no tile fits"):
+        fb._dw_plan((2, 4, 9, 9, 40), 11, 1, torch.float32, "wgrad")
+    assert fb._dw_plan((2, 4, 9, 9, 40), 11, 1, torch.float32, "stencil")
+
+
+def test_dw_kernel_wrappers_refuse_bad_inputs():
+    """Shapes, dtypes, devices and contiguity are refused before any
+    build or launch; a tensor that is neither on the CPU nor on CUDA is
+    no quiet way to the plain version."""
+    meta = dict(device="meta")
+    a = torch.empty((2, 5, 8, 8, 24), **meta)
+    wd = torch.empty((3, 3, 24), **meta)
+    g = torch.empty((2, 7, 8, 8, 24), **meta)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        fb._launch_dw_stencil(a, wd, 1)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        fb.dw_dgrad(g, wd, 1, a.shape)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        fb.dw_wgrad(a, g, 3, 1)
+    with pytest.raises(ValueError, match="shape"):
+        fb._launch_dw_stencil(a, torch.empty((3, 3, 16), **meta), 1)
+    with pytest.raises(ValueError, match="shape"):
+        fb._launch_dw_dgrad(g[:, :6], wd, 1, a.shape)
+    with pytest.raises(ValueError, match="shape"):
+        fb._launch_dw_wgrad(a, g, 5, 1)
+    with pytest.raises(ValueError, match="float32 on meta"):
+        fb._launch_dw_wgrad(a, g.to(torch.float64), 3, 1)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fb._launch_dw_stencil(a.half(), wd.half(), 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        fb._launch_dw_dgrad(g.transpose(2, 3), wd, 1, a.shape)
+    with pytest.raises(ValueError, match=r"\(B, T, H, W, E\)"):
+        fb._launch_dw_stencil(a[0], wd, 1)

@@ -55,7 +55,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 "parallel.zero", "parallel.megatron", "parallel.sequence",
                 "ops.ring_attention"):
         assert f"picklebot_tpu_torch.{mod}" in res["modules"]
-    assert res["launches"] == {"pool": 0, "main": 0}
+    assert res["launches"] == {"pool": 0, "main": 0, "dw_stencil": 0,
+                               "dw_dgrad": 0, "dw_wgrad": 0}
     assert res["flash_launches"] == {"packed": 0, "heads": 0, "dq": 0,
                                      "dkv": 0}
     assert res["conv_launches"] == {"fwd": 0, "dx": 0}
