@@ -21,21 +21,14 @@ from __future__ import annotations
 import time
 
 import numpy as np
-import torch
 
 from portbench.harness import checks, program, session, work
 from portbench.harness import weights as W
-from portbench.reference import models as R
+from portbench.harness.references import reference_model
 from portbench.reference.steps import mean_std, serving_config
 from portbench.reference.steps import predict as reference_predict
 
 TAG_POOL, TAG_ORDER, TAG_CALIBRATION = 11, 12, 13
-
-
-def reference_model(cfg, dev="meta"):
-    with torch.device(dev):
-        return R.build(cfg["model_name"], cfg["num_classes"],
-                       cfg.get("dims"), cfg.get("channels"))
 
 
 def inputs(cfg, traffic, seed, dev):
@@ -44,7 +37,7 @@ def inputs(cfg, traffic, seed, dev):
     pool on the host; the order the calls take the clips in."""
     ref = reference_model(cfg, dev)
     state = W.calibrated(
-        W.seeded_state(ref.state_dict(), seed, dev, cfg["init"]), ref,
+        W.seeded_state(ref, seed, dev, cfg["init"]), ref,
         W.seeded_clips(seed, TAG_CALIBRATION,
                        (traffic["calibration_clips"], *cfg["clip"], 3), dev),
         *mean_std(cfg))

@@ -32,7 +32,7 @@ import torch
 
 from portbench.harness import checks, program, session, work
 from portbench.harness import weights as W
-from portbench.generators.serve_closed import reference_model
+from portbench.harness.references import reference_model
 from portbench.reference.optim import from_codes
 from portbench.reference.steps import follow_training
 
@@ -50,8 +50,7 @@ def inputs(cfg, traffic, seed, dev):
     and labels (U, A, B) on the host."""
     a, b = shape(cfg)
     n = traffic["pool_updates"]
-    state = W.seeded_state(reference_model(cfg).state_dict(), seed, dev,
-                           cfg["init"])
+    state = W.seeded_state(reference_model(cfg), seed, dev, cfg["init"])
     feats = W.seeded_clips(seed, TAG_CLIPS, (n, a, b, *cfg["clip"], 3), dev)
     labels = W.seeded_ints(seed, TAG_LABELS, cfg["num_classes"], (n, a, b))
     return state, feats, labels

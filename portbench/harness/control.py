@@ -10,8 +10,8 @@ import numpy as np
 import torch
 
 from portbench.generators import serve_closed, train_accum
-from portbench.generators.serve_closed import reference_model
 from portbench.harness import checks
+from portbench.harness.references import reference_model
 from portbench.reference.models import set_precision
 from portbench.reference.steps import (follow_training, predict,
                                        serving_config)

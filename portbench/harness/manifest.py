@@ -8,9 +8,38 @@ mix. Each is found by its name alone:
   ``generator``, the module of ``portbench/generators`` that runs it;
 * ``portbench/limits/<workload>.json``: the limits of the numbers that
   decide ``correct`` in that cell;
-* ``portbench/metrics/<metric>.py``: the reader of a per-layer metric.
+* ``portbench/metrics/<metric>.py``: the reader of a per-layer metric;
+* ``portbench/reference/<name>.py``: the plain reference of a
+  configuration whose file carries ``"reference": "<name>"``.
 
-So a new cell, mix or metric is new files and a new entry, and no edit.
+So a new cell, mix, metric or configuration is new files and a new
+entry, and no edit. A configuration's reference keeps three contracts:
+
+1. **Found by its file** (``harness/references.py``). The module's
+   ``build(cfg)`` returns the float32 model in plain ``torch``, importing
+   nothing of the port and nothing of JAX; its ``forward(x,
+   generator=None)`` takes (B, 3, T, H, W). It may define
+   ``loss_terms(model)``, what the configuration's program step adds to
+   the cross entropy before the backward (the MoE auxiliary loss times
+   ``moe_aux_weight``): the reference's steps add it there, and the
+   logged loss stays the cross entropy, as the program logs it. A
+   configuration without the key is built by ``reference/models.py``
+   ``build`` from its ``model_name``.
+2. **Weights drawn by module kind** (``harness/weights.py``). Each leaf
+   of the state takes its rule from the module that owns it: a weight of
+   2 or more dims the configuration's ``init``; the ``weight`` of a
+   normalization module 1 + 0.1 N and its ``bias`` 0.1 N, where a
+   normalization module is a BatchNorm or InstanceNorm, ``LayerNorm``,
+   ``GroupNorm``, ``RMSNorm``, or any module whose class sets
+   ``is_normalization = True`` (an RMSNorm written in a reference file);
+   BatchNorm running variances exp(0.2 N); every other float leaf
+   0.1 N; integer buffers 0.
+3. **Kernel calls reported by the modules** (``harness/work.py``
+   ``geometry``). A module that stands for one of the program's
+   hand-written functions defines ``kernel_call(args) -> (family,
+   geometry)``, or None where this call takes no such function; ``args``
+   are its forward's positional arguments. Families are open: a new
+   kernel is a new key, and a family with no call reads ``[]``.
 """
 
 from __future__ import annotations

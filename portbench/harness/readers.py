@@ -64,9 +64,7 @@ def fused_bottleneck_roofline(win, mode):
     the device time of ``csrc/fused_bottleneck.cu``'s kernels."""
     if not _on(win, mode):
         return None
-    per_forward = sum(work.least_ms(*work.fused_bottleneck_work(*c))
-                      for c in win.calls["fused_bottleneck"])
-    return _share(win.forwards * per_forward,
+    return _share(work.fused_bottleneck_least_ms(win),
                   trace.matching(win.kernels, FUSED_BOTTLENECK))
 
 
@@ -76,12 +74,7 @@ def flash_attention_roofline(win, mode):
     dQ and dK/dV kernels."""
     if not _on(win, mode):
         return None
-    train = win.backwards > 0
-    fwd = sum(work.least_ms(*work.flash_work(*c, with_lse=train))
-              for c in win.calls["attention"])
-    bwd = sum(work.least_ms(*work.flash_backward_work(*c))
-              for c in win.calls["attention"])
-    return _share(win.forwards * fwd + win.backwards * bwd,
+    return _share(work.flash_attention_least_ms(win),
                   trace.matching(win.kernels, FLASH))
 
 
@@ -90,9 +83,7 @@ def folded_conv_roofline(win, mode):
     device time of ``csrc/folded_conv.cu``'s kernels."""
     if not _on(win, mode):
         return None
-    per = sum(work.least_ms(*work.conv_work(*c))
-              for c in win.calls["folded_conv"])
-    return _share((win.forwards + win.backwards) * per,
+    return _share(work.folded_conv_least_ms(win),
                   trace.matching(win.kernels, FOLDED_CONV))
 
 

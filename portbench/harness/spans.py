@@ -217,29 +217,19 @@ def fused_bottleneck_span_roofline(win, mode):
     """``readers.fused_bottleneck_roofline``'s least time over the device
     time of everything launched under the fused forward's spans: the
     pool pass, the SE MLP, the main pass and their buffers."""
-    per_forward = sum(work.least_ms(*work.fused_bottleneck_work(*c))
-                      for c in win.calls["fused_bottleneck"])
     return _span_share(win, mode, (FUSED_FORWARD,),
-                       win.forwards * per_forward)
+                       work.fused_bottleneck_least_ms(win))
 
 
 def flash_attention_span_roofline(win, mode):
     """``readers.flash_attention_roofline``'s least time over the device
     time of everything launched under the flash forward and backward
     spans: the kernels, the backward's D pass and the layout copies."""
-    train = win.backwards > 0
-    fwd = sum(work.least_ms(*work.flash_work(*c, with_lse=train))
-              for c in win.calls["attention"])
-    bwd = sum(work.least_ms(*work.flash_backward_work(*c))
-              for c in win.calls["attention"])
-    return _span_share(win, mode, FLASH,
-                       win.forwards * fwd + win.backwards * bwd)
+    return _span_share(win, mode, FLASH, work.flash_attention_least_ms(win))
 
 
 def folded_conv_span_roofline(win, mode):
     """``readers.folded_conv_roofline``'s least time over the device time
     of everything launched under the conv's forward and dx spans."""
-    per = sum(work.least_ms(*work.conv_work(*c))
-              for c in win.calls["folded_conv"])
     return _span_share(win, mode, FOLDED_CONV,
-                       (win.forwards + win.backwards) * per)
+                       work.folded_conv_least_ms(win))

@@ -1,17 +1,19 @@
 """Seeded weights and inputs, made on the device in a few large calls.
 
-One standard-normal draw covers every entry of a state dict; each tensor
-then takes its share, shaped by a rule read from its key and shape:
+One standard-normal draw covers every float entry of the reference
+model's state dict, in its key order; each tensor then takes its share,
+shaped by a rule read from the module that owns it and its shape:
 
-* a convolution or matmul weight (2 or more dims): the configuration's
-  ``init``, N(0, 2 / fan_in) (fan_in = the product of all dims but the
-  first), N(0, 0.02**2), or PyTorch's default U(-1/sqrt(fan_in),
-  1/sqrt(fan_in)) (the normal draw n taken to erf(n / sqrt 2), which is
-  uniform on (-1, 1));
-* a BatchNorm weight 1 + 0.1 N, its bias 0.1 N, its running mean 0.1 N
-  and running variance exp(0.2 N), so that eval-mode BatchNorm is no
-  identity (``calibrated`` sets the statistics a serving cell uses);
-* any other bias 0.1 N; integer buffers zero.
+* a convolution, matmul or embedding weight (2 or more dims): the
+  configuration's ``init``, N(0, 2 / fan_in) (fan_in = the product of
+  all dims but the first), N(0, 0.02**2), or PyTorch's default
+  U(-1/sqrt(fan_in), 1/sqrt(fan_in)) (the normal draw n taken to
+  erf(n / sqrt 2), which is uniform on (-1, 1));
+* the weight of a normalization module (``is_norm``) 1 + 0.1 N, its bias
+  0.1 N; a BatchNorm's running mean 0.1 N and running variance
+  exp(0.2 N), so that eval-mode BatchNorm is no identity
+  (``calibrated`` sets the statistics a serving cell uses);
+* any other float leaf 0.1 N; integer buffers zero.
 
 The keys are the published model's, shared by the program and the plain
 reference.
@@ -23,8 +25,18 @@ import math
 
 import numpy as np
 import torch
+from torch import nn
+from torch.nn.modules.batchnorm import _NormBase
 
 VAR_FLOOR = 1e-2
+NORM_KINDS = (_NormBase, nn.LayerNorm, nn.GroupNorm, nn.RMSNorm)
+
+
+def is_norm(module) -> bool:
+    """A normalization module: by its kind, or by ``is_normalization =
+    True`` on its class (an RMSNorm written in a reference file)."""
+    return isinstance(module, NORM_KINDS) or getattr(
+        module, "is_normalization", False)
 
 
 def _stream(seed: int, tag: int, device) -> torch.Generator:
@@ -34,23 +46,23 @@ def _stream(seed: int, tag: int, device) -> torch.Generator:
     return g
 
 
-def seeded_state(template: dict, seed: int, device, init="he") -> dict:
-    """{key: tensor} with ``template``'s keys, shapes and dtypes, drawn
-    from ``seed`` on ``device``. ``init`` is the rule of the conv and
-    matmul weights: ``"he"`` N(0, 2 / fan_in), ``"normal_0.02"``
-    N(0, 0.02**2) (MobileViT's published init), ``"torch_default"``
-    U(-1/sqrt(fan_in), 1/sqrt(fan_in)) (PyTorch's default for a conv or
-    linear layer)."""
+def seeded_state(model, seed: int, device, init="he") -> dict:
+    """{key: tensor} with the keys, shapes and dtypes of ``model``'s state
+    dict (a reference model, on any device, ``meta`` too), drawn from
+    ``seed`` on ``device``. ``init`` is the rule of the conv and matmul
+    weights: ``"he"`` N(0, 2 / fan_in), ``"normal_0.02"`` N(0, 0.02**2)
+    (MobileViT's published init), ``"torch_default"`` U(-1/sqrt(fan_in),
+    1/sqrt(fan_in)) (PyTorch's default for a conv or linear layer)."""
+    template = model.state_dict()
     floats = [(k, t) for k, t in template.items() if t.is_floating_point()]
     total = sum(t.numel() for _, t in floats)
     flat = torch.randn(total, generator=_stream(seed, 1, device),
                        device=device)
-    bn = {k.rsplit(".", 1)[0] for k in template
-          if k.endswith(".running_mean")}
     out, at = {}, 0
     for k, t in floats:
         n = flat[at:at + t.numel()].view(t.shape)
-        owner, leaf = k.rsplit(".", 1)
+        path, _, leaf = k.rpartition(".")
+        owner = model.get_submodule(path)
         if t.dim() >= 2:
             fan_in = math.prod(t.shape[1:])
             if init == "he":
@@ -61,9 +73,9 @@ def seeded_state(template: dict, seed: int, device, init="he") -> dict:
                 v = torch.erf(n / math.sqrt(2.0)) / math.sqrt(fan_in)
             else:
                 raise ValueError(f"init {init!r}")
-        elif owner in bn and leaf == "weight":
+        elif is_norm(owner) and leaf == "weight":
             v = 1.0 + 0.1 * n
-        elif leaf == "running_var":
+        elif isinstance(owner, _NormBase) and leaf == "running_var":
             v = torch.exp(0.2 * n)
         else:
             v = 0.1 * n

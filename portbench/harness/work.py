@@ -119,42 +119,33 @@ def conv_work(shape, co, kernel, elem=2):
     return nbytes, 2 * taps * ci * co
 
 
+class Calls(dict):
+    """{family: [geometry of each call, in forward order]}; a family with
+    no call reads []."""
+
+    def __missing__(self, family):
+        return []
+
+
 def geometry(model, clip_shape, batch):
     """The calls of the hand-written functions in one forward of the
-    reference ``model`` (moved to ``meta``) at ``batch`` clips, read
-    from forward hooks: {'fused_bottleneck': [(shape, k, s, e, co,
-    use_se)], 'attention': [(s, h, n, d)], 'folded_conv': [(shape, co,
-    kernel)]}, shapes channels-last."""
-    from portbench.reference import models as R
+    reference ``model`` (moved to ``meta``) at ``batch`` clips: every
+    module that defines ``kernel_call(args)`` reports its call's family
+    and geometry (or None) from a forward hook. The reference's own:
+    {'fused_bottleneck': [(shape, k, s, e, co, use_se)], 'attention':
+    [(s, h, n, d)], 'folded_conv': [(shape, co, kernel)]}, shapes
+    channels-last."""
     model = model.to("meta").eval()
-    calls = {"fused_bottleneck": [], "attention": [], "folded_conv": []}
+    calls = Calls()
 
-    def on_bottleneck(m, args, out):
-        b, c, t, h, w = args[0].shape
-        calls["fused_bottleneck"].append(
-            ((b, t, h, w, c), m.kernel_size, m.stride,
-             m.pointwise_conv1.out_channels,
-             m.pointwise_conv2.out_channels, m.use_se))
+    def on_call(m, args, out):
+        call = m.kernel_call(args)
+        if call is not None:
+            family, geo = call
+            calls.setdefault(family, []).append(geo)
 
-    def on_attention(m, args, out):
-        x = args[0]
-        calls["attention"].append((math.prod(x.shape[:-2]), m.heads,
-                                   x.shape[-2],
-                                   m.to_qkv.out_features // 3 // m.heads))
-
-    def on_conv(m, args, out):
-        b, c, t, h, w = args[0].shape
-        calls["folded_conv"].append(((b, t, h, w, c), m.out_channels,
-                                     tuple(m.kernel_size)))
-
-    hooks = []
-    for m in model.modules():
-        if isinstance(m, R.Bottleneck3D):
-            hooks.append(m.register_forward_hook(on_bottleneck))
-        elif isinstance(m, R.Attention):
-            hooks.append(m.register_forward_hook(on_attention))
-        elif isinstance(m, R.Conv3d) and takes_folded_conv(m):
-            hooks.append(m.register_forward_hook(on_conv))
+    hooks = [m.register_forward_hook(on_call) for m in model.modules()
+             if callable(getattr(m, "kernel_call", None))]
     try:
         with torch.no_grad():
             model(torch.empty((batch, 3) + tuple(clip_shape),
@@ -165,12 +156,29 @@ def geometry(model, clip_shape, batch):
     return calls
 
 
-def takes_folded_conv(conv) -> bool:
-    """The hand-written conv's domain: dense, stride 1, odd kernels with
-    'same' padding and more than one tap, at least 32 channels in and
-    out."""
-    k = tuple(conv.kernel_size)
-    return (conv.groups == 1 and tuple(conv.stride) == (1, 1, 1)
-            and math.prod(k) > 1 and all(x % 2 for x in k)
-            and tuple(conv.padding) == tuple(x // 2 for x in k)
-            and conv.in_channels >= 32 and conv.out_channels >= 32)
+# ------------------------- least time of a window's calls, per family
+
+def fused_bottleneck_least_ms(win):
+    """The profiled forwards' fused bottleneck calls, each counted once
+    (``fused_bottleneck_work``)."""
+    per_forward = sum(least_ms(*fused_bottleneck_work(*c))
+                      for c in win.calls["fused_bottleneck"])
+    return win.forwards * per_forward
+
+
+def flash_attention_least_ms(win):
+    """The forwards' flash forwards (with the lse where the window trains)
+    and the backwards' flash backwards, each as one function."""
+    train = win.backwards > 0
+    fwd = sum(least_ms(*flash_work(*c, with_lse=train))
+              for c in win.calls["attention"])
+    bwd = sum(least_ms(*flash_backward_work(*c))
+              for c in win.calls["attention"])
+    return win.forwards * fwd + win.backwards * bwd
+
+
+def folded_conv_least_ms(win):
+    """The forwards' folded convs and the backwards' input gradients, the
+    same work each."""
+    per = sum(least_ms(*conv_work(*c)) for c in win.calls["folded_conv"])
+    return (win.forwards + win.backwards) * per

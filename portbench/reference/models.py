@@ -20,11 +20,17 @@ per tensor, gradients to e5m2, products in float32).
 Train-mode channel dropout draws ``torch.rand((B, 1, 1, 1, C))`` from
 the generator given to ``forward``, in module order, the masks the
 program's train step draws from the same generator state.
+
+``Conv3d``, ``Bottleneck3D`` and ``Attention`` stand for the program's
+hand-written functions where it routes them there: each reports that
+call's family and geometry (``kernel_call``), which the benchmark's
+work counts read.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
 import torch.nn.functional as F
@@ -79,6 +85,26 @@ class Conv3d(nn.Conv3d):
         return F.conv3d(operand(x, p), operand(self.weight, p), bias,
                         self.stride, self.padding, self.dilation,
                         self.groups)
+
+    def kernel_call(self, args):
+        """The folded conv's call (input shape channels-last, Co, kernel)
+        where the conv lies in its domain, else None."""
+        if not takes_folded_conv(self):
+            return None
+        b, c, t, h, w = args[0].shape
+        return "folded_conv", ((b, t, h, w, c), self.out_channels,
+                               tuple(self.kernel_size))
+
+
+def takes_folded_conv(conv) -> bool:
+    """The hand-written conv's domain: dense, stride 1, odd kernels with
+    'same' padding and more than one tap, at least 32 channels in and
+    out."""
+    k = tuple(conv.kernel_size)
+    return (conv.groups == 1 and tuple(conv.stride) == (1, 1, 1)
+            and math.prod(k) > 1 and all(x % 2 for x in k)
+            and tuple(conv.padding) == tuple(x // 2 for x in k)
+            and conv.in_channels >= 32 and conv.out_channels >= 32)
 
 
 class Linear(nn.Linear):
@@ -154,6 +180,16 @@ class Bottleneck3D(nn.Module):
             mask = mask.permute(0, 4, 1, 2, 3)
             x = torch.where(mask, x / keep, torch.zeros_like(x))
         return x
+
+    def kernel_call(self, args):
+        """The fused bottleneck's call: (input shape channels-last, k,
+        stride, E, Co, SE)."""
+        b, c, t, h, w = args[0].shape
+        return "fused_bottleneck", ((b, t, h, w, c), self.kernel_size,
+                                    self.stride,
+                                    self.pointwise_conv1.out_channels,
+                                    self.pointwise_conv2.out_channels,
+                                    self.use_se)
 
 
 def _conv_bn_act(cin, cout, k, stride=1, padding=0, fn=hardswish):
@@ -234,6 +270,13 @@ class Attention(nn.Module):
         a = torch.matmul(operand(torch.softmax(s * self.scale, dim=-1), p),
                          operand(v, p))
         return self.to_out(a.transpose(-2, -3).flatten(-2))
+
+    def kernel_call(self, args):
+        """The flash attention's call: (sequences, heads, N, head dim)."""
+        x = args[0]
+        return "attention", (math.prod(x.shape[:-2]), self.heads,
+                             x.shape[-2],
+                             self.to_qkv.out_features // 3 // self.heads)
 
 
 class FeedForward(nn.Module):
@@ -327,7 +370,9 @@ class MobileViT(nn.Module):
 
 
 def build(model_name, num_classes, dims=None, channels=None):
-    """The reference model of a configuration's ``model_name``."""
+    """The reference model of a configuration's ``model_name``, for a
+    configuration that names no reference file of its own
+    (``harness/references.py``)."""
     if model_name == "MobileNetLarge3D":
         return MobileNetLarge3D(num_classes)
     if model_name == "MobileViT":

@@ -4,7 +4,10 @@ prediction, and training steps with gradient accumulation.
 Clips arrive as uint8 (B, T, H, W, 3); the model sees (B, 3, T, H, W) in
 float32 scaled to [0, 1], then, where the configuration applies them, the
 per-channel mean and std. The loss is cross entropy, the mean over the
-microbatch. A training step sums the microbatches' gradients unscaled,
+microbatch; where the configuration's reference file defines
+``loss_terms(model)``, its value joins each microbatch's loss before the
+backward, and the recorded loss stays the cross entropy, as the program
+logs it. A training step sums the microbatches' gradients unscaled,
 optionally clips their global norm, and makes one 8-bit AdamW update at
 the epoch's cosine rate. Each microbatch's dropout masks come from a
 generator on the device seeded with (seed * 1_000_003 + position) mod
@@ -13,9 +16,13 @@ generator on the device seeded with (seed * 1_000_003 + position) mod
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from portbench.harness.references import loss_terms
 from portbench.reference.models import f32_exact
 from portbench.reference.optim import AdamW8bit, cosine_lr
 
@@ -77,6 +84,71 @@ def predict(model, clips_u8, mean=None, std=None, block=8, t_bucket=1,
     return torch.cat(out)
 
 
+def recomputed_modules(model):
+    """The outermost modules of ``model`` that stand for one of the
+    program's hand-written functions (they define ``kernel_call``): the
+    model's blocks, which hold most of a microbatch's activations."""
+    out, inside = [], set()
+    for name, m in model.named_modules():
+        if any(name.startswith(p + ".") for p in inside):
+            continue
+        if hasattr(m, "kernel_call"):
+            out.append(m)
+            inside.add(name)
+    return out
+
+
+@contextlib.contextmanager
+def recomputed(model):
+    """Each of ``recomputed_modules(model)`` keeps only its inputs for the
+    backward and runs its forward again there, so that a microbatch of
+    the timed size fits on the card in float32. The arithmetic is the
+    same: a generator among the inputs is set back to the state the first
+    pass saw (the dropout masks repeat) and left where it was, and
+    ``backward`` puts back the buffers (BatchNorm running statistics) that
+    the second pass moved."""
+    wrapped = []
+    for m in recomputed_modules(model):
+        forward = m.forward
+
+        def again(*args, _forward=forward):
+            gens = [a for a in args if isinstance(a, torch.Generator)]
+            first = [g.get_state() for g in gens]
+            calls = [0]
+
+            def run(*a):
+                calls[0] += 1
+                if calls[0] == 1:
+                    return _forward(*a)
+                now = [g.get_state() for g in gens]
+                for g, s in zip(gens, first):
+                    g.set_state(s)
+                try:
+                    return _forward(*a)
+                finally:
+                    for g, s in zip(gens, now):
+                        g.set_state(s)
+            return checkpoint(run, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        m.forward = again
+        wrapped.append(m)
+    try:
+        yield
+    finally:
+        for m in wrapped:
+            del m.forward
+
+
+def backward(model, loss):
+    """``loss.backward()`` with the model's buffers as the forward left
+    them."""
+    kept = [(b, b.clone()) for b in model.buffers()]
+    loss.backward()
+    with torch.no_grad():
+        for b, k in kept:
+            b.copy_(k)
+
+
 def follow_training(model, cfg, updates, seed, position0=0, epoch=0,
                     opt_state=None):
     """Run ``len(updates)`` training steps of the reference from its
@@ -97,11 +169,12 @@ def follow_training(model, cfg, updates, seed, position0=0, epoch=0,
     if opt_state is not None:
         opt.load(*opt_state)
     mean, std = mean_std(cfg)
+    extra = loss_terms(cfg)
     gen = torch.Generator(device=device)
     model.train()
     losses, first = [], None
     position = position0
-    with f32_exact():
+    with f32_exact(), recomputed(model):
         for feats, labels in updates:
             for p in params:
                 p.grad = None
@@ -112,7 +185,8 @@ def follow_training(model, cfg, updates, seed, position0=0, epoch=0,
                 y = torch.as_tensor(labels[i]).to(device).long()
                 gen.manual_seed(micro_seed(seed, position + i))
                 loss = F.cross_entropy(model(x, gen).float(), y)
-                loss.backward()
+                backward(model, loss if extra is None
+                         else loss + extra(model))
                 step_losses.append(float(loss.detach()))
             position += feats.shape[0]
             grads = [p.grad for p in params]

@@ -33,7 +33,7 @@ def pair(name, seed):
     port = initialize_model(Config(model_name=name, num_classes=13,
                                    **kw).validate())
     ref = R.build(name, 13, kw.get("dims"), kw.get("channels"))
-    state = seeded_state(ref.state_dict(), seed, "cpu")
+    state = seeded_state(ref, seed, "cpu")
     port.load_state_dict(state)
     ref.load_state_dict(state)
     return port, ref, state

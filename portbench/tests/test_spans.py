@@ -186,3 +186,75 @@ def test_idle_lies_on_the_hosts_clock_whatever_the_devices_drift():
     b = spans.attribute(drift, HOST, WINDOW).phase_us
     for phase in (spans.FORWARD, spans.BACKWARD):
         assert a[phase] == b[phase]
+
+
+# a forward and a backward that run every hand-written family, each
+# under its function's span
+FAMILY_PROGRAM = [
+    Span(spans.FORWARD, 0, 50), Span(spans.FUSED_FORWARD, 1, 10),
+    Span(spans.FLASH[0], 11, 20), Span(spans.FOLDED_CONV[0], 21, 30),
+    Span(spans.BACKWARD, 50, 100), Span(spans.FLASH[1], 51, 60),
+    Span(spans.FOLDED_CONV[1], 61, 70)]
+FAMILY_EVENTS = [(2, 3, 9, "main_bf16_kernel<3>"), (4, 9, 10, "elementwise"),
+                 (12, 13, 19, "fwd_bf16_kernel<16>"),
+                 (22, 23, 29, "conv_bf16_kernel"),
+                 (52, 53, 57, "dq_bf16_kernel"),
+                 (55, 57, 60, "dkv_bf16_kernel"),
+                 (62, 63, 68, "conv_bf16_kernel"),
+                 (64, 68, 69, "conv_split_sum_kernel")]
+
+
+def family_window():
+    device = [Span(n, s, e) for _, s, e, n in FAMILY_EVENTS]
+    host = FAMILY_PROGRAM + [Span("cudaLaunchKernel", t, t + 0.5)
+                             for t, _, _, _ in FAMILY_EVENTS]
+    return session.Window(
+        "train", device, host, (0.0, 100.0), clips=2, forwards=1,
+        backwards=1, steps=1, rate=1.0, flops_per_clip=1e9,
+        calls={"fused_bottleneck": [((2, 4, 8, 8, 16), 3, 1, 32, 16, True),
+                                    ((2, 4, 8, 8, 16), 5, 2, 64, 24, False)],
+               "attention": [(4, 2, 64, 32), (4, 2, 16, 32)],
+               "folded_conv": [((2, 4, 8, 8, 32), 32, (3, 3, 3))]})
+
+
+def least_ms_inline(win):
+    """The per-family least times as each reader worked them out before
+    ``work`` held them: the oracle of the readings."""
+    from portbench.harness import work
+    fused = win.forwards * sum(work.least_ms(*work.fused_bottleneck_work(*c))
+                               for c in win.calls["fused_bottleneck"])
+    train = win.backwards > 0
+    fwd = sum(work.least_ms(*work.flash_work(*c, with_lse=train))
+              for c in win.calls["attention"])
+    bwd = sum(work.least_ms(*work.flash_backward_work(*c))
+              for c in win.calls["attention"])
+    conv = (win.forwards + win.backwards) * sum(
+        work.least_ms(*work.conv_work(*c)) for c in win.calls["folded_conv"])
+    return {"fused_bottleneck": fused,
+            "flash_attention": win.forwards * fwd + win.backwards * bwd,
+            "folded_conv": conv}
+
+
+@pytest.mark.parametrize("family", ["fused_bottleneck", "flash_attention",
+                                    "folded_conv"])
+def test_family_readings_equal_the_inline_sums(family):
+    """Both readers of a family's roofline share one least-time sum, and
+    read what each read with its own copy."""
+    from portbench.harness import readers
+    win = family_window()
+    least = least_ms_inline(win)[family]
+    names = {"fused_bottleneck": readers.FUSED_BOTTLENECK,
+             "flash_attention": readers.FLASH,
+             "folded_conv": readers.FOLDED_CONV}[family]
+    span_names = {"fused_bottleneck": (spans.FUSED_FORWARD,),
+                  "flash_attention": spans.FLASH,
+                  "folded_conv": spans.FOLDED_CONV}[family]
+    by_kernel = getattr(readers, f"{family}_roofline")(win, "train")
+    by_span = getattr(spans, f"{family}_span_roofline")(win, "train")
+    assert by_kernel is not None and by_span is not None
+    assert by_kernel == readers._share(
+        least, trace.matching(win.kernels, names))
+    assert by_span == spans._span_share(win, "train", span_names, least)
+    # the fused span holds its elementwise kernel too: its share is lower
+    if family == "fused_bottleneck":
+        assert by_span < by_kernel
